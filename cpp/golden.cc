@@ -248,7 +248,7 @@ int radar_process_capture(const RadarParams* p, const char* path,
 // the ABI: 0/1 keep their historical rect/hann meaning):
 //   0 rect, 1 hann, 2 hamming, 3 blackman, 4 blackman-harris.
 // Independent twin of the Python golden's window_fn coefficients
-// (radar_tpu/golden.py): w = a0 - a1 cos t + a2 cos 2t - a3 cos 3t,
+// (mmradar/golden.py): w = a0 - a1 cos t + a2 cos 2t - a3 cos 3t,
 // t = 2*pi*i/n.
 static double win_coef(int kind, int i, int n) {
   static const double k[5][4] = {
@@ -340,8 +340,8 @@ void radar_ca_cfar(const double* power, int d, int r, int guard_d,
       n_train * radar_ca_cfar_alpha_integrated(n_train, pfa, n_pulses);
 
   // separable box sums: Doppler circular, range wrap or reflect (numpy
-  // 'reflect': edge sample not repeated) — same convention as the TPU
-  // XLA/Pallas twins
+  // 'reflect': edge sample not repeated) — same convention as the XLA
+  // twin
   auto box = [&](const std::vector<double>& src, int half_d, int half_r,
                  std::vector<double>& dst) {
     std::vector<double> rows((size_t)d * r);
@@ -384,7 +384,7 @@ void radar_ca_cfar(const double* power, int d, int r, int guard_d,
 double radar_go_so_cfar_alpha(int n_half, double pfa, int kind,
                               int n_pulses) {
   if (n_pulses > 1) {
-    // Erlang-matched double sum (radar_tpu.golden._go_so_alpha_integrated):
+    // Erlang-matched double sum (mmradar.golden._go_so_alpha_integrated):
     // cell Gamma(N), half sums Gamma(M = n_half*N);
     //   Pfa_SO = 2 sum_{k<N} sum_{j<M} G(M+k+j)/(G(M) k! j!)
     //                                  t^k (2+t)^-(M+k+j)
@@ -441,7 +441,7 @@ double radar_go_so_cfar_alpha(int n_half, double pfa, int kind,
   //   Pfa_SO(t) = 2 * sum_{k=0}^{n-1} C(n-1+k, k) * (2+t)^-(n+k)
   //   Pfa_GO(t) = 2 * (1+t)^-n - Pfa_SO(t)
   // Monotone decreasing in t; geometric bisection in log space (matches
-  // radar_tpu.golden.go_so_cfar_alpha).
+  // mmradar.golden.go_so_cfar_alpha).
   const int n = n_half;
   std::vector<double> log_binom(n);
   for (int k = 0; k < n; ++k) {
@@ -512,7 +512,7 @@ void radar_go_so_cfar(const double* power, int d, int r, int guard_d,
 double radar_os_cfar_alpha(int n_train, int k, double pfa,
                            int n_pulses) {
   if (n_pulses > 1) {
-    // Erlang-matched OS alpha (radar_tpu.golden._os_alpha_integrated):
+    // Erlang-matched OS alpha (mmradar.golden._os_alpha_integrated):
     // Pfa(a) = k C(n,k) INT Q(N, a y) F^{k-1} (1-F)^{n-k} f(y) dy with
     // the integer-shape Erlang CDF, trapezoid rule on a dense grid.
     const int n = n_train, np = n_pulses;
@@ -566,7 +566,7 @@ double radar_os_cfar_alpha(int n_train, int k, double pfa,
   // Rohling's exponential-noise OS-CFAR Pfa, solved by bisection on
   // log Pfa(alpha) = log k + lgamma(N+1) - lgamma(k+1) - lgamma(N-k+1)
   //                + lgamma(alpha+N-k+1) + lgamma(k) - lgamma(alpha+N+1)
-  // (matches radar_tpu.golden.os_cfar_alpha bit-for-bit in double).
+  // (matches mmradar.golden.os_cfar_alpha bit-for-bit in double).
   const double log_choose = std::log((double)k) + std::lgamma(n_train + 1.0) -
                             std::lgamma(k + 1.0) -
                             std::lgamma(n_train - k + 1.0);
@@ -588,7 +588,7 @@ double radar_os_cfar_alpha(int n_train, int k, double pfa,
 
 double radar_clutter_map_alpha(double pfa, double beta, int block,
                                int n_pulses) {
-  // Twin of radar_tpu.golden.clutter_map_alpha: the background m is a
+  // Twin of mmradar.golden.clutter_map_alpha: the background m is a
   // weighted sum of per-block Gamma(N*block)/block means with weights
   // w_i = beta*(1-beta)^i/block, so
   //   log M(-a)   = -s * sum_i log1p(a*w_i),   s = N*block

@@ -1,6 +1,6 @@
 // Native float64 golden model for the mmWave range-detection pipeline.
 //
-// C twin of radar_tpu/golden.py: decode/reshape (reference
+// C twin of mmradar/golden.py: decode/reshape (reference
 // cudaBenchMarking.cpp:149-188), radix-2 FFT (:61-105), peak scan
 // (:191-206) and the distance formula (:301-303), re-designed as a
 // reusable C library (parameter struct + C ABI for ctypes) instead of the
@@ -78,13 +78,13 @@ int radar_process_capture(const RadarParams* p, const char* path,
 // fftshifted.  `window` selects the periodic cosine-sum window applied on
 // both axes: 0 rect, 1 hann, 2 hamming, 3 blackman, 4 blackman-harris
 // (0/1 keep their historical bool meaning).  Matches
-// radar_tpu.golden.range_doppler_map / golden.window_fn.
+// mmradar.golden.range_doppler_map / golden.window_fn.
 void radar_range_doppler(const double* in_re, const double* in_im,
                          int chirps_in, int samples_in, int doppler_fft,
                          int range_fft, int window, double* out_re,
                          double* out_im);
 
-// 2D cell-averaging CFAR (matches radar_tpu.golden.ca_cfar_2d): Doppler
+// 2D cell-averaging CFAR (matches mmradar.golden.ca_cfar_2d): Doppler
 // axis wraps, range axis per range_mode (0 = wrap, 1 = reflect — range is
 // not circular).  power: (d, r) row-major; outputs threshold (d, r) and
 // hit flags (0/1).
@@ -99,7 +99,7 @@ void radar_ca_cfar(const double* power, int d, int r, int guard_d,
 // CA-CFAR threshold RATIO t (threshold = t * training_sum) for N-pulse
 // non-coherently integrated maps: cells Erlang-N, training sum
 // Gamma(n*N), Pfa(t) = sum_{k<N} C(nN+k-1,k) t^k (1+t)^-(nN+k); reduces
-// to pfa^{-1/n}-1 at N=1.  Matches radar_tpu.golden
+// to pfa^{-1/n}-1 at N=1.  Matches mmradar.golden
 // .ca_cfar_alpha_integrated (same bisection, double precision).
 double radar_ca_cfar_alpha_integrated(int n_train, double pfa,
                                       int n_pulses);
@@ -110,7 +110,7 @@ double radar_ca_cfar_alpha_integrated(int n_train, double pfa,
 // radar_ca_cfar.
 // n_pulses: non-coherent integration depth (1 = Rohling's Beta form;
 // N > 1 = Erlang-matched via the numerical order-statistic integral,
-// matching radar_tpu.golden.os_cfar_alpha).
+// matching mmradar.golden.os_cfar_alpha).
 double radar_os_cfar_alpha(int n_train, int k, double pfa, int n_pulses);
 void radar_os_cfar(const double* power, int d, int r, int guard_d,
                    int guard_r, int train_d, int train_r, double pfa,
@@ -122,10 +122,10 @@ void radar_os_cfar(const double* power, int d, int r, int guard_d,
 // (dr < 0) halves (the dr == 0 column is excluded, n_half cells each);
 // threshold = t * max/min(half sums) with t from the exact Gandhi-Kassam
 // exponential-noise Pfa (radar_go_so_cfar_alpha).  Matches
-// radar_tpu.golden.go_so_cfar_2d; same edge conventions as radar_ca_cfar.
+// mmradar.golden.go_so_cfar_2d; same edge conventions as radar_ca_cfar.
 // n_pulses: non-coherent integration depth (1 = the exponential
 // Gandhi-Kassam forms; N > 1 = the Erlang-matched double-sum
-// generalization, matching radar_tpu.golden.go_so_cfar_alpha).
+// generalization, matching mmradar.golden.go_so_cfar_alpha).
 double radar_go_so_cfar_alpha(int n_half, double pfa, int kind,
                               int n_pulses);
 void radar_go_so_cfar(const double* power, int d, int r, int guard_d,
@@ -138,12 +138,12 @@ void radar_go_so_cfar(const double* power, int d, int r, int guard_d,
 // decision p > alpha * m against the pre-update map.  n_pulses = 1:
 // the classic product form Pfa = prod_i (1 + a*b*(1-b)^i/s)^-s with
 // s = block; N > 1: the Erlang-matched MGF-derivative series (matches
-// radar_tpu.golden.clutter_map_alpha bit-for-bit in double).
+// mmradar.golden.clutter_map_alpha bit-for-bit in double).
 double radar_clutter_map_alpha(double pfa, double beta, int block,
                                int n_pulses);
 
 // Clutter-map CFAR over a (frames, d, r) power sequence (twin of
-// radar_tpu.golden.clutter_map_cfar).  m0 may be NULL (the first block
+// mmradar.golden.clutter_map_cfar).  m0 may be NULL (the first block
 // seeds the map and emits no hits); m_out receives the final map.
 void radar_clutter_map_cfar(const double* power, int frames, int d,
                             int r, double pfa, double beta, int block,

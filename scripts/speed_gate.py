@@ -1,13 +1,11 @@
 #!/usr/bin/env python
 """Speed-mode acceptance study: dft_precision='default' vs 'high'.
 
-Round-4 verdict item: 'default' (one bf16 MXU pass, ~9e-4 relative vs
-f64 golden) ran 26% faster than the 'high' headline (159.3k vs 126.6k
-fps driver-captured) but its acceptance criterion was never formalized —
-prec_ab.py showed "modes agree on every detection" once, on one capture.
-
-This script is the formalization: across >= --seeds seeds AND the
-selftest geometry sweep, compare the two modes' full detection output:
+``dft_precision`` selects the matmul precision of the DFT-as-matmul
+front-ends ('mxu', 'planar', 'fused'; the 'fft' front-end ignores it).
+Whether the cheaper precision may carry a cell's headline is an
+acceptance question this script answers: across >= --seeds seeds AND a
+geometry sweep, compare the two modes' full detection output:
 
   * detection-set flips: symmetric difference of the
     {(frame, doppler_bin, range_bin)} sets (a detection present in one
@@ -16,14 +14,16 @@ selftest geometry sweep, compare the two modes' full detection output:
     SAME KEY by construction, so what remains is the interp sub-bin
     estimates and azimuth — max |delta| reported for both.
 
-Acceptance criterion (encoded in selftest check 'speed-mode
-detections'): zero flips on the default geometry at moderate SNR; the
-study additionally reports near-threshold behavior (noise-only frames at
-the CFAR operating point, where single-bf16 rounding CAN flip marginal
-cells — those flips are the detector's own +/-1e-4-Pfa band, not a
-pipeline bug, and are reported as a rate).
+Acceptance criterion: zero flips on the default geometry at moderate
+SNR; the study additionally reports near-threshold behavior (noise-only
+frames at the CFAR operating point, where reduced-precision rounding CAN
+flip marginal cells — those flips are the detector's own +/-1e-4-Pfa
+band, not a pipeline bug, and are reported as a rate).  The numbers mean
+something only on the card (``python scripts/speed_gate.py`` there); a
+CPU run computes every precision in full f32.
 
-Usage: python scripts/speed_gate.py [--seeds 20] [--frames 64] [--json out]
+Usage: python scripts/speed_gate.py [--seeds 20] [--frames 64]
+       [--rd-impl fused] [--json out]
 """
 
 from __future__ import annotations
@@ -35,19 +35,20 @@ import sys
 sys.path.insert(0, ".")
 
 
-def compare(cfg, cap, max_detections=16):
+def compare(cfg, cap, rd_impl, max_detections=16):
     """Run both modes on one capture; return flip/delta stats."""
     import dataclasses
 
     import jax.numpy as jnp
     import numpy as np
 
-    from radar_tpu.models.rd_pipeline import RDPipeline
+    from mmradar.models.rd_pipeline import RDPipeline
 
     out = {}
     for prec in ("high", "default"):
         c = dataclasses.replace(cfg, dft_precision=prec)
-        pipe = RDPipeline(c, max_detections=max_detections)
+        pipe = RDPipeline(c, max_detections=max_detections,
+                          rd_impl=rd_impl)
         base = pipe.prepare_base(jnp.asarray(cap[0]))
         r = pipe.detect(jnp.asarray(cap[1:]), base)
         valid = np.asarray(r.valid).astype(bool)
@@ -79,16 +80,19 @@ def main() -> None:
     ap = argparse.ArgumentParser()
     ap.add_argument("--seeds", type=int, default=20)
     ap.add_argument("--frames", type=int, default=64)
+    ap.add_argument("--rd-impl", default="fused",
+                    choices=["mxu", "planar", "fused"])
     ap.add_argument("--json", default=None)
     args = ap.parse_args()
 
     import jax
 
-    from radar_tpu.config import RadarConfig
-    from radar_tpu.io.synthetic import SceneTarget, synthesize_capture
+    from mmradar.config import RadarConfig
+    from mmradar.io.synthetic import SceneTarget, synthesize_capture
 
-    print(f"backend={jax.default_backend()} (bf16-pass semantics need "
-          f"tpu; cpu runs are sanity only)", file=sys.stderr)
+    dev = jax.devices()[0]
+    print(f"device: platform={dev.platform} kind={dev.device_kind} "
+          f"rd_impl={args.rd_impl}", file=sys.stderr)
 
     targets = [
         SceneTarget(3.0, 2.0, 20.0, amplitude=2500.0),
@@ -103,7 +107,7 @@ def main() -> None:
     for seed in range(args.seeds):
         cap = synthesize_capture(targets, args.frames + 1, cfg,
                                  noise_std=8.0, seed=seed)
-        r = compare(cfg, cap)
+        r = compare(cfg, cap, args.rd_impl)
         r["seed"] = seed
         total_flips += r["flips"]
         total_frames += args.frames
@@ -120,7 +124,7 @@ def main() -> None:
     for geom in geometries:
         gcfg = RadarConfig(**geom)
         cap = synthesize_capture(targets, 17, gcfg, noise_std=8.0, seed=99)
-        r = compare(gcfg, cap)
+        r = compare(gcfg, cap, args.rd_impl)
         r["geometry"] = geom
         total_flips += r["flips"]
         total_frames += 16
@@ -133,7 +137,7 @@ def main() -> None:
     for seed in range(5):
         cap = synthesize_capture([], args.frames + 1, cfg,
                                  noise_std=20.0, seed=1000 + seed)
-        r = compare(cfg, cap)
+        r = compare(cfg, cap, args.rd_impl)
         r["seed"] = 1000 + seed
         summary["noise_only"].append(r)
         print(f"noise seed {seed}: {r}", file=sys.stderr)

@@ -9,15 +9,15 @@ time plus the collective traffic the sharding implies.
 This is a SIMULATION in the precise sense that the devices are
 --xla_force_host_platform_device_count virtual CPU devices sharing one
 host's cores — absolute times mean nothing, and inter-device "collectives"
-are memcpys, not ICI.  What it demonstrates honestly:
+are memcpys, not NVLink.  What it demonstrates honestly:
 
 * the sharded program compiles and runs at full frame geometry for every
   mesh shape (not just the tiny dryrun shapes);
 * the collective payload per step is tiny and CONSTANT per device as the
   mesh grows (weak scaling): the psum moves one (D, R) f32 partial-power
   map per local frame and the all_gather moves K x rx complex snapshots —
-  independent of n — so on real ICI (~100 GB/s/link) the collective time
-  is bounded by microseconds against a ~multi-ms compute step.
+  independent of n — so over NVLink (450 GB/s each way per H100, NVIDIA's
+  data sheet) the collective time is bounded by microseconds.
 
 Each mesh size runs in its own subprocess (the device count must be fixed
 before the backend initializes).
@@ -44,10 +44,10 @@ import jax
 
 jax.config.update("jax_platforms", "cpu")
 
-from radar_tpu.config import RadarConfig
-from radar_tpu.io.synthetic import SceneTarget, synthesize_capture
-from radar_tpu.parallel.distributed import DistributedRDPipeline
-from radar_tpu.parallel.mesh import build_mesh
+from mmradar.config import RadarConfig
+from mmradar.io.synthetic import SceneTarget, synthesize_capture
+from mmradar.parallel.distributed import DistributedRDPipeline
+from mmradar.parallel.mesh import build_mesh
 
 n = int(__import__("sys").argv[1])
 fps_shard = int(__import__("sys").argv[2])
@@ -138,9 +138,9 @@ def main() -> None:
         lines += [
             "",
             "Collective payloads are constant per device as the mesh grows —",
-            "the weak-scaling property the layout was designed for.  On real",
-            "ICI (~1e11 B/s per link) the psum payload above costs ~10 us",
-            "against a multi-ms compute step.",
+            "the weak-scaling property the layout was designed for.  Over",
+            "NVLink (450 GB/s each way per H100, NVIDIA's data sheet) the",
+            "psum payload above is microseconds of transfer.",
             "",
         ]
         with open(args.out, "w") as f:

@@ -5,12 +5,12 @@ import json
 import numpy as np
 import jax.numpy as jnp
 
-from radar_tpu import golden
-from radar_tpu.io.capture import write_capture
-from radar_tpu.io.synthetic import SceneTarget, synthesize_capture
-from radar_tpu.ops.aoa import angle_doppler_from_shorts
-from radar_tpu.ops.decode import decode_to_cube
-from radar_tpu.ops.mdoppler import auto_range_bin
+from mmradar import golden
+from mmradar.io.capture import write_capture
+from mmradar.io.synthetic import SceneTarget, synthesize_capture
+from mmradar.ops.aoa import angle_doppler_from_shorts
+from mmradar.ops.decode import decode_to_cube
+from mmradar.ops.mdoppler import auto_range_bin
 
 
 def _capture(cfg, tgts, frames=4, seed=3):
@@ -64,7 +64,7 @@ def test_angle_doppler_peak_physics(cfg):
 
 
 def test_cli_admap(tmp_path, cfg, capsys):
-    from radar_tpu import cli
+    from mmradar import cli
 
     cap = _capture(cfg, [
         SceneTarget(range_m=5.0, velocity_mps=2.0, azimuth_deg=10.0,

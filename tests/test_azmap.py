@@ -1,4 +1,4 @@
-"""Range-azimuth heatmap: golden/TPU parity + physics sanity."""
+"""Range-azimuth heatmap: golden/device parity + physics sanity."""
 
 import json
 
@@ -6,11 +6,11 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from radar_tpu import golden
-from radar_tpu.config import RadarConfig
-from radar_tpu.io.synthetic import SceneTarget, synthesize_capture
-from radar_tpu.ops.aoa import range_azimuth_from_shorts
-from radar_tpu.ops.decode import decode_to_cube
+from mmradar import golden
+from mmradar.config import RadarConfig
+from mmradar.io.synthetic import SceneTarget, synthesize_capture
+from mmradar.ops.aoa import range_azimuth_from_shorts
+from mmradar.ops.decode import decode_to_cube
 
 
 @pytest.fixture(scope="module")
@@ -41,7 +41,7 @@ def test_range_azimuth_peak_at_target(az_setup):
         range_azimuth_from_shorts(frames, base_cube, cfg)).mean(axis=0)
     a_bin, r_bin = np.unravel_index(np.argmax(pmap), pmap.shape)
     az = golden.angle_bin_to_deg(a_bin, pmap.shape[0], cfg)
-    from radar_tpu.evaluate import expected_bins
+    from mmradar.evaluate import expected_bins
 
     _, r_true = expected_bins(5.0, 2.0, cfg)
     assert abs(r_bin - r_true) <= 1
@@ -71,8 +71,8 @@ def test_range_azimuth_mimo_compensation_matters():
 
 
 def test_cli_azmap(tmp_path, capsys):
-    from radar_tpu.cli import main
-    from radar_tpu.io.capture import write_capture
+    from mmradar.cli import main
+    from mmradar.io.capture import write_capture
 
     cfg = RadarConfig()
     cap = synthesize_capture(
@@ -96,7 +96,7 @@ def test_cli_azmap(tmp_path, capsys):
 
 def test_range_azimuth_capon_matches_golden(az_setup):
     cfg, cap, frames, base64, base_cube = az_setup
-    from radar_tpu.ops.aoa import range_azimuth_capon_from_shorts
+    from mmradar.ops.aoa import range_azimuth_capon_from_shorts
 
     angles, want = golden.range_azimuth_capon_map(cap[1:], base64, cfg)
     got = np.asarray(range_azimuth_capon_from_shorts(frames, base_cube, cfg))
@@ -110,7 +110,7 @@ def test_range_azimuth_capon_matches_golden(az_setup):
     a_bin, r_bin = np.unravel_index(np.argmax(pmap), pmap.shape)
     lo, hi, na = cfg.angle_grid_deg
     az = np.linspace(lo, hi, int(na))[a_bin]
-    from radar_tpu.evaluate import expected_bins
+    from mmradar.evaluate import expected_bins
 
     _, r_true = expected_bins(5.0, 2.0, cfg)
     assert abs(r_bin - r_true) <= 1
@@ -118,8 +118,8 @@ def test_range_azimuth_capon_matches_golden(az_setup):
 
 
 def test_cli_azmap_capon(tmp_path, capsys):
-    from radar_tpu.cli import main
-    from radar_tpu.io.capture import write_capture
+    from mmradar.cli import main
+    from mmradar.io.capture import write_capture
 
     cfg = RadarConfig()
     cap = synthesize_capture(

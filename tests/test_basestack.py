@@ -14,14 +14,14 @@ import json
 import numpy as np
 import jax.numpy as jnp
 
-from radar_tpu.config import RadarConfig
-from radar_tpu.io.capture import write_capture
-from radar_tpu.io.synthetic import SceneTarget, synthesize_capture
-from radar_tpu.models.rd_pipeline import RDPipeline
+from mmradar.config import RadarConfig
+from mmradar.io.capture import write_capture
+from mmradar.io.synthetic import SceneTarget, synthesize_capture
+from mmradar.models.rd_pipeline import RDPipeline
 
 
 def test_prepare_base_stack_is_mean_of_cubes(cfg):
-    from radar_tpu.ops.decode import decode_to_cube
+    from mmradar.ops.decode import decode_to_cube
 
     cap = synthesize_capture([], 4, cfg, noise_std=10.0, seed=7, n_base=4)
     pipe = RDPipeline(cfg, max_detections=8)
@@ -49,7 +49,7 @@ def test_base_averaging_halves_noise_floor(cfg):
     """Post-subtraction mean cell power: 2 sigma^2 with a single noisy
     base -> (1 + 1/K) sigma^2 with a K-frame average (measured 0.5627x
     at K=8 vs the 0.5625 prediction)."""
-    from radar_tpu.ops.fuseddft import fused_rd_planes
+    from mmradar.ops.fuseddft import fused_rd_planes
 
     cap = synthesize_capture([], 8 + 6, cfg, noise_std=20.0, seed=0,
                              n_base=8)
@@ -64,7 +64,7 @@ def test_base_averaging_halves_noise_floor(cfg):
 
 
 def test_cli_base_frames_roundtrip(tmp_path, cfg):
-    from radar_tpu import cli
+    from mmradar import cli
 
     path = tmp_path / "k.bin"
     rc = cli.main(["generate", str(path), "--frames", "12",
@@ -87,7 +87,7 @@ def test_cli_base_frames_roundtrip(tmp_path, cfg):
 
 
 def test_cli_track_base_frames(tmp_path, cfg):
-    from radar_tpu import cli
+    from mmradar import cli
 
     path = tmp_path / "k.bin"
     assert cli.main(["generate", str(path), "--frames", "14",
@@ -108,7 +108,7 @@ def test_cli_track_base_frames(tmp_path, cfg):
 
 
 def test_ego_motion_yaw_unit():
-    from radar_tpu.golden import estimate_ego_motion_yaw, mount_rotation
+    from mmradar.golden import estimate_ego_motion_yaw, mount_rotation
 
     v = np.array([1.0, 6.0])
     omega = 0.2
@@ -137,10 +137,10 @@ def test_ego_motion_yaw_end_to_end(cfg, tmp_path):
     frames present)."""
     import json
 
-    from radar_tpu import cli
-    from radar_tpu.golden import mount_rotation
-    from radar_tpu.io.capture import write_capture
-    from radar_tpu.io.synthetic import static_scene_targets, \
+    from mmradar import cli
+    from mmradar.golden import mount_rotation
+    from mmradar.io.capture import write_capture
+    from mmradar.io.synthetic import static_scene_targets, \
         synthesize_capture
 
     v = np.array([1.0, 6.0])
@@ -172,12 +172,12 @@ def test_ego_motion_yaw_recovers_rate(cfg):
     injected (v, omega) from the two sensors' detected scenes."""
     import jax.numpy as jnp
 
-    from radar_tpu import golden
-    from radar_tpu.golden import mount_rotation
-    from radar_tpu.io.synthetic import static_scene_targets, \
+    from mmradar import golden
+    from mmradar.golden import mount_rotation
+    from mmradar.io.synthetic import static_scene_targets, \
         synthesize_capture
-    from radar_tpu.models.rd_pipeline import RDPipeline
-    from radar_tpu.ops.egomotion import estimate_ego_motion
+    from mmradar.models.rd_pipeline import RDPipeline
+    from mmradar.ops.egomotion import estimate_ego_motion
 
     v = np.array([1.0, 6.0])
     omega = 0.15
@@ -206,7 +206,7 @@ def test_ego_motion_yaw_recovers_rate(cfg):
 def test_cli_detect_resume_with_base_frames(tmp_path, cfg):
     """--resume seeks past both the base frames and the already-written
     records (resume == seek; the pipeline is stateless past the base)."""
-    from radar_tpu import cli
+    from mmradar import cli
 
     path = tmp_path / "k.bin"
     assert cli.main(["generate", str(path), "--frames", "12",

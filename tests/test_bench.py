@@ -1,4 +1,5 @@
-"""bench.py smoke test (CPU backend) — the driver runs this on real TPU."""
+"""bench.py smoke test on the CPU backend (JAX_PLATFORMS=cpu, set by
+conftest) — the benchmark's numbers come from the GPU."""
 
 import json
 import sys
@@ -13,7 +14,7 @@ def test_bench_main_emits_json_line(monkeypatch, capsys):
     monkeypatch.setattr(
         sys, "argv",
         ["bench.py", "--frames", "32", "--batch", "16", "--reps", "1",
-         "--skip-h2d", "--wait-device", "0"],
+         "--skip-h2d"],
     )
     bench.main()
     out = capsys.readouterr().out.strip().splitlines()
@@ -31,8 +32,8 @@ def test_bench_main_emits_json_line(monkeypatch, capsys):
 
 
 def test_detect_sharded_matches_local(cfg, capture):
-    from radar_tpu.models.range_detector import RangeDetector
-    from radar_tpu.parallel.mesh import build_mesh
+    from mmradar.models.range_detector import RangeDetector
+    from mmradar.parallel.mesh import build_mesh
 
     det = RangeDetector(cfg)
     base = det.prepare_base(capture[0])

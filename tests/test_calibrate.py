@@ -13,10 +13,10 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from radar_tpu import golden
-from radar_tpu.config import RadarConfig
-from radar_tpu.io.synthetic import SceneTarget, synthesize_capture
-from radar_tpu.models.rd_pipeline import RDPipeline, apply_rx_cal
+from mmradar import golden
+from mmradar.config import RadarConfig
+from mmradar.io.synthetic import SceneTarget, synthesize_capture
+from mmradar.models.rd_pipeline import RDPipeline, apply_rx_cal
 
 
 # a deliberately ugly channel response: up to 2 dB gain spread and
@@ -46,7 +46,7 @@ def _golden_cal_snapshots(shorts, cfg):
 
 
 def decode(shorts, cfg):
-    from radar_tpu.io.capture import decode_shorts
+    from mmradar.io.capture import decode_shorts
 
     return decode_shorts(shorts, cfg)
 
@@ -141,7 +141,7 @@ class TestApplication:
     def test_azmap_calibrated(self):
         """The scene-level range-azimuth map folds the correction into
         its host constants — peak angle must match the clean scene's."""
-        from radar_tpu.ops.aoa import range_azimuth_from_shorts, angle_bins_deg
+        from mmradar.ops.aoa import range_azimuth_from_shorts, angle_bins_deg
 
         cfg = RadarConfig()
         tgt = [SceneTarget(range_m=8.0, velocity_mps=0.8, azimuth_deg=-28.0,
@@ -159,7 +159,7 @@ class TestApplication:
         ccfg = RadarConfig(rx_cal=tuple(cal))
 
         def peak_angle(capture, c):
-            from radar_tpu.ops.decode import decode_to_cube
+            from mmradar.ops.decode import decode_to_cube
 
             base = decode_to_cube(jnp.asarray(capture[0]), c)
             m = np.asarray(range_azimuth_from_shorts(

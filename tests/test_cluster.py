@@ -1,15 +1,15 @@
-"""Detection clustering: the TPU min-propagation labeler vs the golden
+"""Detection clustering: the device min-propagation labeler vs the golden
 BFS, wrap semantics, object stats, and the detect_objects surface."""
 
 import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from radar_tpu import golden
-from radar_tpu.config import RadarConfig
-from radar_tpu.io.synthetic import SceneTarget, synthesize_capture
-from radar_tpu.models.rd_pipeline import RDPipeline
-from radar_tpu.ops.cluster import cluster_detections, label_hits
+from mmradar import golden
+from mmradar.config import RadarConfig
+from mmradar.io.synthetic import SceneTarget, synthesize_capture
+from mmradar.models.rd_pipeline import RDPipeline
+from mmradar.ops.cluster import cluster_detections, label_hits
 
 
 def _random_hits(shape, density, seed):
@@ -100,7 +100,7 @@ class TestClusterDetections:
         # centroid in bin space vs the physics mapping of the hand value
         dw = (w * np.array([[10], [11]])).sum() / w.sum()
         rw = (w * np.array([20, 21, 22])).sum() / w.sum()
-        from radar_tpu.models.rd_pipeline import cell_physics
+        from mmradar.models.rd_pipeline import cell_physics
 
         want_r, want_v = cell_physics(
             jnp.float32(dw), jnp.float32(rw), cfg
@@ -205,10 +205,7 @@ class TestDetectObjects:
 
     def test_detect_objects_detections_match_detect(self):
         """detect_objects' RDResult must equal detect()'s on the same
-        maps impl (clustering is a pure addition, not a fork).  The impl
-        is pinned to a maps path: on a TPU backend an unpinned detect()
-        takes the fused detect kernel, whose azimuth agrees with the
-        maps path only to ~1e-5."""
+        maps impl (clustering is a pure addition, not a fork)."""
         cfg = RadarConfig()
         cap = synthesize_capture(
             [SceneTarget(range_m=5.0, velocity_mps=1.0, amplitude=2500.0)],

@@ -5,11 +5,11 @@ import numpy as np
 import jax.numpy as jnp
 import pytest
 
-from radar_tpu import golden
-from radar_tpu.config import RadarConfig
-from radar_tpu.io.synthetic import SceneTarget, synthesize_capture
-from radar_tpu.models.rd_pipeline import RDPipeline
-from radar_tpu.ops.cmap import clutter_map_cfar
+from mmradar import golden
+from mmradar.config import RadarConfig
+from mmradar.io.synthetic import SceneTarget, synthesize_capture
+from mmradar.models.rd_pipeline import RDPipeline
+from mmradar.ops.cmap import clutter_map_cfar
 
 
 def test_alpha_realizes_design_pfa_monte_carlo():
@@ -57,7 +57,7 @@ def test_varying_floor_beats_spatial_ca():
     low side of the edge (the ring mixes both levels) and needs a
     target on the high side to clear an inflated threshold; the clutter
     map adapts per cell and gets both right."""
-    from radar_tpu.ops.cfar import cfar_detect
+    from mmradar.ops.cfar import cfar_detect
 
     rng = np.random.default_rng(2)
     d_sz, r_sz, n_f = 64, 128, 200
@@ -128,8 +128,8 @@ def test_moving_target_stays_detected(cfg):
 def test_cli_detect_cmap(tmp_path, cfg):
     import json
 
-    from radar_tpu import cli
-    from radar_tpu.io.capture import write_capture
+    from mmradar import cli
+    from mmradar.io.capture import write_capture
 
     tgt = SceneTarget(range_m=5.0, velocity_mps=8.0, azimuth_deg=-5.0,
                       amplitude=2000.0)

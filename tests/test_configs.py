@@ -6,11 +6,11 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from radar_tpu import golden
-from radar_tpu.config import RadarConfig
-from radar_tpu.io.synthetic import SceneTarget, synthesize_capture
-from radar_tpu.models.range_detector import RangeDetector
-from radar_tpu.models.rd_pipeline import RDPipeline
+from mmradar import golden
+from mmradar.config import RadarConfig
+from mmradar.io.synthetic import SceneTarget, synthesize_capture
+from mmradar.models.range_detector import RangeDetector
+from mmradar.models.rd_pipeline import RDPipeline
 
 CONFIGS = [
     RadarConfig(num_samples=256, num_chirps=128),           # config-1 shape
@@ -67,7 +67,7 @@ def test_rescale_no_int32_overflow():
     rescale must still match Python's exact integer math."""
     import jax.numpy as jnp
 
-    from radar_tpu.ops.detect import distance_from_bin
+    from mmradar.ops.detect import distance_from_bin
 
     for c in [
         RadarConfig(num_samples=256, num_chirps=512),   # rx=131072 (pow2)
@@ -153,31 +153,32 @@ def test_invalid_knob_values_rejected():
 @pytest.mark.parametrize("c", CONFIGS, ids=lambda c: (
     f"s{c.num_samples}-c{c.num_chirps}-rx{c.num_rx}-tx{c.num_tx}"
 ))
-def test_mega_matches_fused_across_configs(c):
-    """The mega kernel (interpret mode on CPU) must agree with the fused
-    path at every geometry — the in-kernel reshape/demux/CFAR math is
+def test_fft_matches_fused_across_configs(c):
+    """The FFT front-end (the auto default) must agree with the fused
+    matmul path at every geometry — the reshape/demux math is
     shape-generic, not hardwired to 100x128x4."""
     tgt = SceneTarget(range_m=4.0, velocity_mps=1.5, azimuth_deg=12.0,
                       amplitude=3000.0)
     shorts = synthesize_capture([tgt], 3, c, noise_std=2.0, seed=11)
     fused = RDPipeline(c, max_detections=8, rd_impl="fused", cfar_impl="xla")
-    mega = RDPipeline(c, max_detections=8, rd_impl="mega", cfar_impl="xla")
+    fft = RDPipeline(c, max_detections=8, rd_impl="fft", cfar_impl="xla")
     base = fused.prepare_base(jnp.asarray(shorts[0]))
     a = fused.detect(jnp.asarray(shorts[1:]), base)
-    b = mega.detect(jnp.asarray(shorts[1:]), base)
+    b = fft.detect(jnp.asarray(shorts[1:]), base)
     np.testing.assert_array_equal(np.asarray(a.range_bin), np.asarray(b.range_bin))
     np.testing.assert_array_equal(np.asarray(a.valid), np.asarray(b.valid))
     # atol scaled to the peak: noise-floor cells (~1e-7 of peak) carry
-    # clutter-cancellation noise that differs between Mosaic and XLA
-    # accumulation orders
+    # clutter-cancellation noise that differs between the FFT and the
+    # matmul accumulation orders
     np.testing.assert_allclose(np.asarray(a.power), np.asarray(b.power),
                                rtol=2e-4,
                                atol=1e-8 * float(np.asarray(a.power).max()))
 
 
 @pytest.mark.parametrize("seed", range(4))
-def test_mega_matches_fused_random_geometry(seed):
-    """Fuzz the mega kernel across random geometries (interpret mode)."""
+def test_fft_matches_fused_random_geometry(seed):
+    """Fuzz the FFT front-end against the fused one across random
+    geometries."""
     rng = np.random.RandomState(seed + 200)
     num_tx = int(rng.choice([1, 2]))
     c = RadarConfig(
@@ -190,15 +191,15 @@ def test_mega_matches_fused_random_geometry(seed):
                       amplitude=3000.0)
     shorts = synthesize_capture([tgt], 2, c, noise_std=2.0, seed=seed)
     fused = RDPipeline(c, max_detections=4, rd_impl="fused", cfar_impl="xla")
-    mega = RDPipeline(c, max_detections=4, rd_impl="mega", cfar_impl="xla")
+    fft = RDPipeline(c, max_detections=4, rd_impl="fft", cfar_impl="xla")
     base = fused.prepare_base(jnp.asarray(shorts[0]))
     a = fused.detect(jnp.asarray(shorts[1:]), base)
-    b = mega.detect(jnp.asarray(shorts[1:]), base)
+    b = fft.detect(jnp.asarray(shorts[1:]), base)
     np.testing.assert_array_equal(np.asarray(a.range_bin), np.asarray(b.range_bin))
     np.testing.assert_array_equal(np.asarray(a.valid), np.asarray(b.valid))
     # atol scaled to the peak: noise-floor cells (~1e-7 of peak) carry
-    # clutter-cancellation noise that differs between Mosaic and XLA
-    # accumulation orders
+    # clutter-cancellation noise that differs between the FFT and the
+    # matmul accumulation orders
     np.testing.assert_allclose(np.asarray(a.power), np.asarray(b.power),
                                rtol=2e-4,
                                atol=1e-8 * float(np.asarray(a.power).max()))

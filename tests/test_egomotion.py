@@ -6,15 +6,15 @@ import numpy as np
 import jax.numpy as jnp
 import pytest
 
-from radar_tpu import golden
-from radar_tpu.config import RadarConfig
-from radar_tpu.io.synthetic import (
+from mmradar import golden
+from mmradar.config import RadarConfig
+from mmradar.io.synthetic import (
     SceneTarget,
     static_scene_targets,
     synthesize_capture,
 )
-from radar_tpu.models.rd_pipeline import RDPipeline
-from radar_tpu.ops.egomotion import (
+from mmradar.models.rd_pipeline import RDPipeline
+from mmradar.ops.egomotion import (
     ego_compensated_velocity,
     estimate_ego_motion,
 )
@@ -157,8 +157,8 @@ def test_end_to_end_capture(cfg):
 
 
 def test_cli_detect_ego(tmp_path, cfg):
-    from radar_tpu import cli
-    from radar_tpu.io.capture import write_capture
+    from mmradar import cli
+    from mmradar.io.capture import write_capture
 
     tgts = static_scene_targets(
         V_EGO, ranges_m=[3.0, 6.0, 9.0, 5.0],
@@ -184,8 +184,8 @@ def test_cli_detect_ego(tmp_path, cfg):
 
 
 def test_cli_detect_ego_requires_full(tmp_path, cfg):
-    from radar_tpu import cli
-    from radar_tpu.io.capture import write_capture
+    from mmradar import cli
+    from mmradar.io.capture import write_capture
 
     cap = synthesize_capture([SceneTarget(range_m=3.0)], 2, cfg, seed=0)
     path = tmp_path / "c.bin"
@@ -196,8 +196,8 @@ def test_cli_detect_ego_requires_full(tmp_path, cfg):
 def test_cli_track_ego_drops_static_world(tmp_path, cfg, capsys):
     """Moving-platform tracking: without --ego the static world confirms
     tracks; with it only the genuine mover tracks."""
-    from radar_tpu import cli
-    from radar_tpu.io.capture import write_capture
+    from mmradar import cli
+    from mmradar.io.capture import write_capture
 
     tgts = static_scene_targets(
         V_EGO, ranges_m=[3.0, 5.5, 8.0, 4.5],
@@ -256,8 +256,8 @@ def test_world_targets_collapse_in_bev(tmp_path, cfg, capsys):
     range/azimuth/Doppler from true geometry, the ego fit recovers the
     platform velocity, and dead-reckoned world accumulation collapses
     each scatterer to a tight cluster (vs the sensor-frame smear)."""
-    from radar_tpu import cli
-    from radar_tpu.io.capture import write_capture
+    from mmradar import cli
+    from mmradar.io.capture import write_capture
 
     world = [(-3.0, 6.0), (1.5, 4.0), (4.0, 8.0), (-1.0, 9.0)]
     tgts = [SceneTarget(range_m=0.0, amplitude=2500.0, world_xy=w)

@@ -8,8 +8,8 @@ import json
 import numpy as np
 import pytest
 
-from radar_tpu.config import RadarConfig
-from radar_tpu.evaluate import expected_bins, measure_pfa, pd_curve
+from mmradar.config import RadarConfig
+from mmradar.evaluate import expected_bins, measure_pfa, pd_curve
 
 
 @pytest.fixture(scope="module")
@@ -22,7 +22,7 @@ def test_expected_bins_roundtrip(small_cfg):
     """expected_bins inverts cell_physics to within a bin."""
     import jax.numpy as jnp
 
-    from radar_tpu.models.rd_pipeline import cell_physics
+    from mmradar.models.rd_pipeline import cell_physics
 
     d, r = expected_bins(6.0, 2.0, small_cfg)
     rng_m, vel = cell_physics(jnp.asarray(d), jnp.asarray(r), small_cfg)
@@ -90,7 +90,7 @@ def test_object_metrics_tracks_moving_truth():
     """object_metrics propagates truth ranges per frame: centroid RMSE
     measures clustering, not target motion (a fast target over enough
     frames would otherwise accumulate ~0.5 m of pure drift)."""
-    from radar_tpu.evaluate import object_metrics
+    from mmradar.evaluate import object_metrics
 
     cfg = RadarConfig()
     om = object_metrics(cfg, ranges_m=(8.0,), velocities_mps=(-4.0,),
@@ -103,7 +103,7 @@ def test_object_metrics_tracks_moving_truth():
 
 
 def test_cli_eval_smoke(capsys):
-    from radar_tpu.cli import main
+    from mmradar.cli import main
 
     rc = main(["eval", "--frames", "4", "--amplitudes", "1000",
                "--seed", "2"])
@@ -119,7 +119,7 @@ def test_cli_eval_smoke(capsys):
 def test_object_metrics_two_targets():
     """Strong, well-separated targets: every frame reports both objects
     with tight centroids, and clustering dedupes the raw cell list."""
-    from radar_tpu.evaluate import object_metrics
+    from mmradar.evaluate import object_metrics
 
     cfg = RadarConfig()
     om = object_metrics(cfg, ranges_m=(3.0, 8.0),
@@ -134,7 +134,7 @@ def test_object_metrics_two_targets():
 
 
 def test_cli_eval_objects(capsys):
-    from radar_tpu.cli import main
+    from mmradar.cli import main
 
     rc = main(["eval", "--frames", "4", "--amplitudes", "1000",
                "--seed", "2", "--objects"])
@@ -154,7 +154,7 @@ def test_track_metrics_clean_scene(kind):
     switches, no false confirmed tracks, and state RMSE well inside a
     bin width (the synthetic generator moves targets coherently, so the
     truth trajectory is analytic)."""
-    from radar_tpu.evaluate import track_metrics
+    from mmradar.evaluate import track_metrics
 
     m = track_metrics(frames=12, tracker_kind=kind, rd_impl="fused",
                       seed=3)
@@ -168,7 +168,7 @@ def test_track_metrics_clean_scene(kind):
 
 
 def test_cli_eval_tracks(capsys):
-    from radar_tpu.cli import main
+    from mmradar.cli import main
 
     rc = main(["eval", "--frames", "6", "--amplitudes", "2500",
                "--seed", "2", "--tracks"])
@@ -189,7 +189,7 @@ def test_track_metrics_crossing_targets_ekf():
     switches, one unbroken track per truth — the scenario the
     alpha-beta tracker's polar nearest-neighbor association exists to
     be upgraded from (DESIGN's EKF rationale)."""
-    from radar_tpu.evaluate import track_metrics
+    from mmradar.evaluate import track_metrics
 
     m = track_metrics(ranges_m=(4.0, 7.0), velocities_mps=(6.0, -6.0),
                       azimuths_deg=(20.0, -20.0), frames=40,

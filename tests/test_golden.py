@@ -3,8 +3,8 @@
 import numpy as np
 import pytest
 
-from radar_tpu import golden
-from radar_tpu.io.synthetic import SceneTarget, synthesize_capture, synthesize_cube
+from mmradar import golden
+from mmradar.io.synthetic import SceneTarget, synthesize_capture, synthesize_cube
 
 
 class TestButterflyFFT:

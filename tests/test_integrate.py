@@ -6,11 +6,11 @@ import numpy as np
 import jax.numpy as jnp
 import pytest
 
-from radar_tpu import golden
-from radar_tpu.config import RadarConfig
-from radar_tpu.io.capture import write_capture
-from radar_tpu.io.synthetic import SceneTarget, synthesize_capture
-from radar_tpu.models.rd_pipeline import RDPipeline
+from mmradar import golden
+from mmradar.config import RadarConfig
+from mmradar.io.capture import write_capture
+from mmradar.io.synthetic import SceneTarget, synthesize_capture
+from mmradar.models.rd_pipeline import RDPipeline
 
 
 def test_integrated_map_matches_golden_sum(cfg):
@@ -24,7 +24,7 @@ def test_integrated_map_matches_golden_sum(cfg):
     out = pipe.detect_integrated(jnp.asarray(cap[1:]), base, 4)
     assert out.valid.shape[0] == 2  # 8 frames -> 2 groups
 
-    from radar_tpu.io.capture import decode_frame
+    from mmradar.io.capture import decode_frame
 
     base_g = decode_frame(cap[0], cfg)
     maps = np.stack([
@@ -55,7 +55,7 @@ def test_integration_improves_pd():
     under base-frame subtraction every frame carries the SAME base-noise
     realization, which integrates coherently and kills the gain (the
     measured finding in ``detect_integrated``'s docstring)."""
-    from radar_tpu.evaluate import pd_curve
+    from mmradar.evaluate import pd_curve
 
     cfg = RadarConfig(clutter_mode="mti2")
     # operating point re-found for the round-5 Erlang-matched default
@@ -73,7 +73,7 @@ def test_integrated_alpha_matches_golden():
     """ops.cfar.cfar_alpha(n_pulses=N) == golden bisection; reduces to
     the closed form at N=1; alpha-per-pulse decreases with N (the
     integration gain the matched threshold harvests)."""
-    from radar_tpu.ops.cfar import cfar_alpha
+    from mmradar.ops.cfar import cfar_alpha
 
     a1, n_train = cfar_alpha((2, 2), (4, 8), 1e-4)
     assert a1 == n_train * (1e-4 ** (-1.0 / n_train) - 1.0)
@@ -99,7 +99,7 @@ def test_integrated_pfa_bounded(cfg):
     here as a phenomenon so a regression in either direction trips."""
     import dataclasses
 
-    from radar_tpu.evaluate import measure_pfa
+    from mmradar.evaluate import measure_pfa
 
     m = measure_pfa(dataclasses.replace(cfg, clutter_mode="mean"),
                     frames=16, noise_std=20.0, seed=0, n_integrate=4)
@@ -118,7 +118,7 @@ def test_bad_group_size_raises(cfg):
 
 
 def test_cli_detect_integrate(tmp_path, cfg):
-    from radar_tpu import cli
+    from mmradar import cli
 
     tgt = SceneTarget(range_m=5.0, velocity_mps=1.0, azimuth_deg=-10.0,
                       amplitude=2000.0)
@@ -144,7 +144,7 @@ def test_range_walk_correction_rescues_fast_target():
     plain sum smears it below threshold while the Doppler-conditioned
     alignment keeps the full gain (measured operating point: Pd 0 -> 1
     at the same amplitude)."""
-    from radar_tpu.evaluate import pd_curve
+    from mmradar.evaluate import pd_curve
 
     cfg = RadarConfig(clutter_mode="mti2")
     # amp 0.35 (was 0.45): the round-5 matched default alpha detects
@@ -183,7 +183,7 @@ def test_rx_matched_alpha_realizes_design_pfa(cfg):
     cfar_n_pulses=1, see MIGRATION.md) measures ~0 hits."""
     import dataclasses
 
-    from radar_tpu.evaluate import measure_pfa
+    from mmradar.evaluate import measure_pfa
 
     assert cfg.cfar_pulses_effective == cfg.num_virtual_rx
     legacy = measure_pfa(

@@ -5,9 +5,9 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from radar_tpu.config import RadarConfig
-from radar_tpu.io.synthetic import SceneTarget, synthesize_capture
-from radar_tpu.ops.interference import (
+from mmradar.config import RadarConfig
+from mmradar.io.synthetic import SceneTarget, synthesize_capture
+from mmradar.ops.interference import (
     blank_interference,
     golden_blank_interference,
 )
@@ -43,7 +43,7 @@ def test_blanking_noop_on_clean_capture():
 def test_blanking_rescues_jammed_detection():
     """Strong interference corrupts the RD map; blanking restores the
     clean capture's detections."""
-    from radar_tpu.models.rd_pipeline import RDPipeline
+    from mmradar.models.rd_pipeline import RDPipeline
 
     cfg = RadarConfig()
     clean = synthesize_capture(TARGETS, 5, cfg, noise_std=5.0, seed=9)
@@ -68,7 +68,7 @@ def test_blanking_rescues_jammed_detection():
     # and the jammed map really was corrupted: off-target energy from
     # the bursts dwarfs the blanked map's residual (probe: ~290x summed,
     # ~50x peak with ALL clean detections' range neighborhoods masked)
-    from radar_tpu.ops.fuseddft import fused_rd_planes
+    from mmradar.ops.fuseddft import fused_rd_planes
 
     def power_map(frames):
         dr, di = fused_rd_planes(jnp.asarray(frames), base, cfg)
@@ -85,8 +85,8 @@ def test_blanking_rescues_jammed_detection():
 
 
 def test_cli_detect_blank_interference(tmp_path, capsys):
-    from radar_tpu.cli import main
-    from radar_tpu.io.capture import write_capture
+    from mmradar.cli import main
+    from mmradar.io.capture import write_capture
 
     cfg = RadarConfig()
     cap = synthesize_capture(TARGETS, 4, cfg, noise_std=5.0, seed=9,
@@ -106,8 +106,8 @@ def test_interference_with_rx_imbalance_encodes(cfg):
     encode to int16."""
     import numpy as np
 
-    from radar_tpu.io.capture import encode_frame
-    from radar_tpu.io.synthetic import SceneTarget, synthesize_cube
+    from mmradar.io.capture import encode_frame
+    from mmradar.io.synthetic import SceneTarget, synthesize_cube
 
     resp = np.array([1.0, 1.26 * np.exp(1j * 0.6),
                      0.79 * np.exp(-1j * 0.7), 1.12 * np.exp(-1j * 0.3)])

@@ -3,7 +3,7 @@
 import numpy as np
 import pytest
 
-from radar_tpu.io.capture import (
+from mmradar.io.capture import (
     decode_frame,
     encode_frame,
     frames_in_file,
@@ -11,7 +11,7 @@ from radar_tpu.io.capture import (
     read_capture,
     write_capture,
 )
-from radar_tpu.io.synthetic import SceneTarget, synthesize_capture
+from mmradar.io.synthetic import SceneTarget, synthesize_capture
 
 
 def test_decode_layout_matches_reference_contract(cfg):

@@ -17,10 +17,10 @@ import pytest
 
 import jax.numpy as jnp
 
-from radar_tpu import golden
-from radar_tpu.config import RadarConfig
-from radar_tpu.io.synthetic import SceneTarget, synthesize_cube, encode_frame
-from radar_tpu.ops.keystone import keystone_cube
+from mmradar import golden
+from mmradar.config import RadarConfig
+from mmradar.io.synthetic import SceneTarget, synthesize_cube, encode_frame
+from mmradar.ops.keystone import keystone_cube
 
 
 WALK_CFG = RadarConfig(num_chirps=512, slope_hz_per_s=4 * 5.987e12)
@@ -118,7 +118,7 @@ def test_pipeline_keystone_end_to_end():
     """RDPipeline(keystone=True): the walking target lost by the plain
     pipeline (smeared below threshold / wrong cell) is detected at the
     right range and velocity with keystone on."""
-    from radar_tpu.models.rd_pipeline import RDPipeline
+    from mmradar.models.rd_pipeline import RDPipeline
 
     cfg = WALK_CFG
     cube = _walk_cube()
@@ -140,10 +140,12 @@ def test_pipeline_keystone_end_to_end():
 
 
 def test_pipeline_keystone_rejects_planar_impls():
-    from radar_tpu.models.rd_pipeline import RDPipeline
+    from mmradar.models.rd_pipeline import RDPipeline
 
-    with pytest.raises(ValueError, match="keystone"):
-        RDPipeline(WALK_CFG, keystone=True, rd_impl="mega")._resolve_rd_impl()
+    for impl in ("planar", "fused"):
+        with pytest.raises(ValueError, match="keystone"):
+            RDPipeline(WALK_CFG, keystone=True,
+                       rd_impl=impl)._resolve_rd_impl()
 
 
 def test_default_generator_unchanged_by_flag_default():

@@ -6,15 +6,15 @@ import threading
 import numpy as np
 import pytest
 
-from radar_tpu.io.live import (
+from mmradar.io.live import (
     DEFAULT_PAYLOAD,
     HEADER_BYTES,
     PacketReassembler,
     make_packets,
     udp_frames,
 )
-from radar_tpu.models.range_detector import RangeDetector
-from radar_tpu import golden
+from mmradar.models.range_detector import RangeDetector
+from mmradar import golden
 
 
 def test_reassembly_roundtrip(cfg, capture):
@@ -99,7 +99,7 @@ def test_serve_loopback(cfg, serve_over_udp):
     The UDP race-avoidance scaffolding lives in the ``serve_over_udp``
     conftest fixture (shared with test_velocity's serve test).
     """
-    from radar_tpu.io.synthetic import SceneTarget, synthesize_capture
+    from mmradar.io.synthetic import SceneTarget, synthesize_capture
 
     capture = synthesize_capture(
         [SceneTarget(range_m=5.0, velocity_mps=0.0, azimuth_deg=15.0,
@@ -133,8 +133,8 @@ def test_serve_blank_interference(cfg, capsys):
     """serve --blank-interference: a jammed stream still yields the
     target, and the shutdown stats report the blanked-sample count."""
     import time
-    from radar_tpu import cli
-    from radar_tpu.io.synthetic import SceneTarget, synthesize_capture
+    from mmradar import cli
+    from mmradar.io.synthetic import SceneTarget, synthesize_capture
     import json as _json
 
     capture = synthesize_capture(
@@ -222,7 +222,7 @@ def test_udp_frame_batches_cover_stream(cfg, capture):
     """The micro-batching generator yields every frame, in order, with
     batches bounded by max_batch."""
     import time
-    from radar_tpu.io.live import udp_frame_batches
+    from mmradar.io.live import udp_frame_batches
 
     port = _free_port()
     packets = make_packets(capture[:6])
@@ -286,8 +286,8 @@ def test_serve_two_sources(cfg, capsys):
     with their source index."""
     import time
     import json as _json
-    from radar_tpu import cli
-    from radar_tpu.io.synthetic import SceneTarget, synthesize_capture
+    from mmradar import cli
+    from mmradar.io.synthetic import SceneTarget, synthesize_capture
 
     cap_a = synthesize_capture(
         [SceneTarget(range_m=4.0, velocity_mps=0.0, azimuth_deg=0.0,
@@ -330,8 +330,8 @@ def test_serve_refine_loopback(cfg, capsys):
     (regression: the packed result array must be writable for the
     in-place azimuth replacement)."""
     import time
-    from radar_tpu import cli
-    from radar_tpu.io.synthetic import SceneTarget, synthesize_capture
+    from mmradar import cli
+    from mmradar.io.synthetic import SceneTarget, synthesize_capture
     import json as _json
 
     capture = synthesize_capture(
@@ -382,9 +382,9 @@ def test_replay_feeds_serve(cfg, tmp_path, capsys):
     cudaBenchMarking.cpp:224)."""
     import threading
     import time
-    from radar_tpu import cli
-    from radar_tpu.io.capture import write_capture
-    from radar_tpu.io.synthetic import SceneTarget, synthesize_capture
+    from mmradar import cli
+    from mmradar.io.capture import write_capture
+    from mmradar.io.synthetic import SceneTarget, synthesize_capture
     import json as _json
 
     capture = synthesize_capture(
@@ -434,7 +434,7 @@ def test_serve_integrate(cfg, serve_over_udp):
     Reference contrast: the reference detects single spectra per frame
     (acceleration.cu:522) and has no streaming or integration story.
     """
-    from radar_tpu.io.synthetic import SceneTarget, synthesize_capture
+    from mmradar.io.synthetic import SceneTarget, synthesize_capture
 
     # a MOVING target: fresh-noise clutter modes notch zero Doppler, so
     # a 0 m/s scatterer would be removed by the clutter filter itself.
@@ -473,7 +473,7 @@ def test_serve_base_frames(cfg, serve_over_udp):
     """serve --base-frames K: the first K frames per source accumulate
     into ONE averaged base (quenched-noise floor /K); records start at
     the first post-base frame and the base_frame event reports K."""
-    from radar_tpu.io.synthetic import SceneTarget, synthesize_capture
+    from mmradar.io.synthetic import SceneTarget, synthesize_capture
 
     capture = synthesize_capture(
         [SceneTarget(range_m=5.0, velocity_mps=2.0, azimuth_deg=15.0,

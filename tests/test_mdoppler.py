@@ -1,9 +1,9 @@
-"""Micro-Doppler spectrogram: golden/TPU parity + physics sanity.
+"""Micro-Doppler spectrogram: golden/device parity + physics sanity.
 
 The synthetic generator models coherent cross-frame slow time
 (io/synthetic.py ``slow_t``), so a constant-velocity target must appear
 as a constant spectral line at its radial velocity in every STFT
-window, and the float64 golden and the jitted MXU path must agree at
+window, and the float64 golden and the jitted matmul path must agree at
 the configured precision class.
 """
 
@@ -13,11 +13,11 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from radar_tpu import golden
-from radar_tpu.config import RadarConfig
-from radar_tpu.io.synthetic import SceneTarget, synthesize_capture
-from radar_tpu.ops.decode import decode_to_cube
-from radar_tpu.ops.mdoppler import (
+from mmradar import golden
+from mmradar.config import RadarConfig
+from mmradar.io.synthetic import SceneTarget, synthesize_capture
+from mmradar.ops.decode import decode_to_cube
+from mmradar.ops.mdoppler import (
     auto_range_bin,
     micro_doppler_spectrogram,
 )
@@ -66,7 +66,7 @@ def test_micro_doppler_constant_velocity_line(md_setup):
 def test_micro_doppler_auto_gate_finds_target(md_setup):
     cfg, cap, frames, base64, base_cube = md_setup
     r_bin = auto_range_bin(frames, base_cube, cfg)
-    from radar_tpu.evaluate import expected_bins
+    from mmradar.evaluate import expected_bins
 
     _, r_true = expected_bins(5.0, 2.0, cfg)
     assert abs(r_bin - r_true) <= 1
@@ -94,9 +94,9 @@ def test_micro_doppler_mean_clutter_mode(md_setup):
 
 
 def test_cli_mdoppler(tmp_path, capsys):
-    from radar_tpu.cli import main
-    from radar_tpu.io.capture import write_capture
-    from radar_tpu.io.synthetic import synthesize_capture as synth
+    from mmradar.cli import main
+    from mmradar.io.capture import write_capture
+    from mmradar.io.synthetic import synthesize_capture as synth
 
     cfg = RadarConfig()
     cap = synth([SceneTarget(range_m=5.0, velocity_mps=2.0,

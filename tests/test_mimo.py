@@ -4,13 +4,13 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from radar_tpu import golden
-from radar_tpu.config import RadarConfig
-from radar_tpu.io.capture import decode_shorts, encode_frame
-from radar_tpu.io.synthetic import SceneTarget, synthesize_capture, synthesize_cube
-from radar_tpu.models.rd_pipeline import RDPipeline
-from radar_tpu.parallel.distributed import DistributedRDPipeline
-from radar_tpu.parallel.mesh import build_mesh
+from mmradar import golden
+from mmradar.config import RadarConfig
+from mmradar.io.capture import decode_shorts, encode_frame
+from mmradar.io.synthetic import SceneTarget, synthesize_capture, synthesize_cube
+from mmradar.models.rd_pipeline import RDPipeline
+from mmradar.parallel.distributed import DistributedRDPipeline
+from mmradar.parallel.mesh import build_mesh
 
 
 @pytest.fixture(scope="module")
@@ -168,7 +168,7 @@ class TestElevation:
     elevated TX enables joint (az, el) estimation."""
 
     def _cfg(self):
-        from radar_tpu.config import RadarConfig
+        from mmradar.config import RadarConfig
 
         # TX0 at origin, TX1 elevated by half a wavelength: virtual array
         # = two stacked 4-element ULAs -> az from the ULAs, el from the
@@ -176,8 +176,8 @@ class TestElevation:
         return RadarConfig(num_tx=2, tx_positions_wl=((0.0, 0.0), (0.0, 0.5)))
 
     def test_steering_snapshot_recovers_az_el(self):
-        from radar_tpu import golden
-        from radar_tpu.ops.aoa import aoa_2d_from_snapshots
+        from mmradar import golden
+        from mmradar.ops.aoa import aoa_2d_from_snapshots
 
         cfg = self._cfg()
         assert cfg.has_elevation
@@ -199,8 +199,8 @@ class TestElevation:
         assert abs(float(el_j[0, 0]) - el_g) <= 1.1
 
     def test_pipeline_refine_2d_end_to_end(self):
-        from radar_tpu.io.synthetic import SceneTarget, synthesize_capture
-        from radar_tpu.models.rd_pipeline import RDPipeline
+        from mmradar.io.synthetic import SceneTarget, synthesize_capture
+        from mmradar.models.rd_pipeline import RDPipeline
 
         cfg = self._cfg()
         tgt = SceneTarget(range_m=6.0, velocity_mps=1.0, azimuth_deg=-15.0,
@@ -230,9 +230,9 @@ def test_azimuth_interpolation_beats_grid(cfg):
     """An off-grid azimuth: the sub-bin interpolated estimate lands closer
     to truth than the raw angle-FFT bin."""
     from statistics import median
-    from radar_tpu.io.synthetic import SceneTarget, synthesize_capture
-    from radar_tpu.models.rd_pipeline import RDPipeline
-    from radar_tpu import golden
+    from mmradar.io.synthetic import SceneTarget, synthesize_capture
+    from mmradar.models.rd_pipeline import RDPipeline
+    from mmradar import golden
 
     az_true = 17.3  # between 64-bin angle-FFT grid points
     shorts = synthesize_capture(
@@ -257,8 +257,8 @@ def test_azimuth_interpolation_beats_grid(cfg):
 def test_azimuth_interp_matches_golden_twin(cfg):
     """The jitted interpolated azimuth equals the float64 golden twin to
     f32 tolerance on a random snapshot."""
-    from radar_tpu import golden
-    from radar_tpu.models.rd_pipeline import aoa_from_snapshots
+    from mmradar import golden
+    from mmradar.models.rd_pipeline import aoa_from_snapshots
 
     rng = np.random.default_rng(99)
     snap = (rng.standard_normal(cfg.num_rx)

@@ -3,7 +3,7 @@
 The reference's only clutter handling is base-frame subtraction
 (cudaBenchMarking.cpp:277-280); 'mean' removes the scene average.
 'mti2'/'mti3' notch zero Doppler per CPI with no empty-scene capture:
-golden truth is :func:`radar_tpu.golden.mti_filter` (time domain, f64),
+golden truth is :func:`mmradar.golden.mti_filter` (time domain, f64),
 and every rd_impl must match it.
 """
 
@@ -11,11 +11,11 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from radar_tpu import golden
-from radar_tpu.config import RadarConfig
-from radar_tpu.io.capture import decode_shorts
-from radar_tpu.io.synthetic import SceneTarget, synthesize_capture
-from radar_tpu.models.rd_pipeline import RDPipeline
+from mmradar import golden
+from mmradar.config import RadarConfig
+from mmradar.io.capture import decode_shorts
+from mmradar.io.synthetic import SceneTarget, synthesize_capture
+from mmradar.models.rd_pipeline import RDPipeline
 
 
 class TestGoldenFilter:
@@ -45,7 +45,7 @@ class TestGoldenFilter:
             golden.mti_filter(np.zeros((4, 2)), 4)
 
     def test_jnp_twin_matches(self):
-        from radar_tpu.ops.preproc import mti_clutter_removal
+        from mmradar.ops.preproc import mti_clutter_removal
 
         rng = np.random.default_rng(2)
         x = rng.normal(size=(3, 16, 8)).astype(np.float32)
@@ -120,7 +120,7 @@ class TestParity:
         np.testing.assert_array_equal(with_base, without)
 
     def test_fused_planes_match_golden(self, mti_cfg, mti_capture):
-        from radar_tpu.ops.fuseddft import fused_rd_planes
+        from mmradar.ops.fuseddft import fused_rd_planes
 
         dr, di = fused_rd_planes(jnp.asarray(mti_capture[1:2]), None, mti_cfg)
         got = np.asarray(dr) + 1j * np.asarray(di)
@@ -132,27 +132,25 @@ class TestParity:
         assert np.abs(got[0] - want).max() / scale < 1e-3
 
     @pytest.mark.parametrize("order", [2, 3])
-    def test_mega_power_matches_golden(self, mti_capture, order):
-        from radar_tpu.ops.pallas.megakernel import (
-            power_cfar_from_shorts_pallas,
-        )
-
+    def test_maps_power_matches_golden(self, mti_capture, order):
+        """RDPipeline.maps on the raw-space 'fused' front-end: MTI power
+        vs golden, and a hit map of the same shape."""
         cfg = RadarConfig(clutter_mode=f"mti{order}")
-        power, thresh = power_cfar_from_shorts_pallas(
-            jnp.asarray(mti_capture[1:3]), None, cfg, interpret=True
-        )
+        power, hits = RDPipeline(cfg, rd_impl="fused",
+                                 use_base_frame=False).maps(
+            jnp.asarray(mti_capture[1:3]))
         want = _golden_power(mti_capture[1], cfg, order)
         got = np.asarray(power[0])
         scale = want.max()
         assert np.abs(got - want).max() / scale < 1e-3
-        assert thresh.shape == power.shape
+        assert hits.shape == power.shape
 
-    def test_detect_kernel_matches_fft_impl(self, mti_cfg, mti_capture):
-        """The fused detect kernel (interpret) and the complex-FFT path
-        agree bin-for-bin under MTI — same cross-impl gate as the other
-        clutter modes."""
+    def test_fused_matches_fft_impl(self, mti_cfg, mti_capture):
+        """The fused matmul front-end and the complex-FFT path agree
+        bin-for-bin under MTI — same cross-impl gate as the other clutter
+        modes."""
         shorts = jnp.asarray(mti_capture[1:3])
-        a = RDPipeline(mti_cfg, rd_impl="mega-interpret").detect(shorts)
+        a = RDPipeline(mti_cfg, rd_impl="fused").detect(shorts)
         b = RDPipeline(mti_cfg, rd_impl="fft").detect(shorts)
         np.testing.assert_array_equal(np.asarray(a.valid), np.asarray(b.valid))
         va = np.asarray(a.valid)
@@ -163,14 +161,16 @@ class TestParity:
             np.asarray(a.doppler_bin)[va], np.asarray(b.doppler_bin)[va]
         )
 
-    def test_snapshots_match_fused_gather(self, mti_cfg, mti_capture):
-        from radar_tpu.models.rd_pipeline import gather_snapshots
-        from radar_tpu.ops.fuseddft import fused_rd_planes
-        from radar_tpu.ops.pallas.megakernel import snapshots_from_shorts
+    def test_snapshots_match_cube_gather(self, mti_cfg, mti_capture):
+        """AoA snapshots gathered from the fused planes == from the
+        complex-FFT RD cube under MTI."""
+        from mmradar.models.rd_pipeline import gather_snapshots
+        from mmradar.ops.fuseddft import fused_rd_planes
 
         shorts = jnp.asarray(mti_capture[1:2])
         top_idx = jnp.asarray([[513, 2048, 77]], jnp.int32)
-        got = np.asarray(snapshots_from_shorts(shorts, None, top_idx, mti_cfg))
+        rd = RDPipeline(mti_cfg, rd_impl="fft").rd_cube(shorts, None)
+        got = np.asarray(gather_snapshots(rd, top_idx))
         dr, di = fused_rd_planes(shorts, None, mti_cfg)
         want = np.asarray(
             gather_snapshots(dr, top_idx) + 1j * gather_snapshots(di, top_idx)
@@ -210,8 +210,8 @@ class TestFunctional:
     def test_cli_detect_clutter_flag(self, tmp_path, mti_capture, capsys):
         import json
 
-        from radar_tpu import cli
-        from radar_tpu.io.capture import write_capture
+        from mmradar import cli
+        from mmradar.io.capture import write_capture
 
         cap = tmp_path / "mti.bin"
         write_capture(str(cap), mti_capture)
@@ -230,8 +230,8 @@ def test_distributed_mti_matches_single_device(mti_cfg, mti_capture):
     """chan-sharded mesh under MTI agrees with the single-device FFT path."""
     import jax
 
-    from radar_tpu.parallel.distributed import DistributedRDPipeline
-    from radar_tpu.parallel.mesh import build_mesh
+    from mmradar.parallel.distributed import DistributedRDPipeline
+    from mmradar.parallel.mesh import build_mesh
 
     if len(jax.devices()) < 8:
         pytest.skip("needs the 8-device CPU mesh")
@@ -243,13 +243,12 @@ def test_distributed_mti_matches_single_device(mti_cfg, mti_capture):
         jnp.asarray(shorts)
     )
     va = np.asarray(ref.valid)
-    # both the fft shard path and the chan-sharded mega kernel (which
-    # carries the MTI fold in each shard's Doppler constants)
-    for rd_impl in ("fft", "mega"):
+    # both the fft shard path and the chan-sharded fused path (which
+    # applies the canceller to each shard's range planes)
+    for rd_impl in ("fft", "fused"):
         dist = DistributedRDPipeline(cfg=mti_cfg, mesh=mesh,
                                      max_detections=8, rd_impl=rd_impl,
-                                     cfar_impl="xla" if rd_impl == "mega"
-                                     else "auto")
+                                     cfar_impl="auto")
         base = dist.prepare_base(mti_capture[0])
         out = dist.detect(dist.shard_frames(shorts), base)
         np.testing.assert_array_equal(np.asarray(out.valid), va)
@@ -261,7 +260,7 @@ def test_distributed_mti_matches_single_device(mti_cfg, mti_capture):
     np.testing.assert_array_equal(np.asarray(no_base.valid), va)
     # ... but 'auto' without a base must refuse (a zero base would
     # silently disable clutter removal at the shard level)
-    from radar_tpu.config import RadarConfig
+    from mmradar.config import RadarConfig
 
     auto = DistributedRDPipeline(cfg=RadarConfig(), mesh=mesh,
                                  max_detections=8)

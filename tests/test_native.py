@@ -8,8 +8,8 @@ import subprocess
 import numpy as np
 import pytest
 
-from radar_tpu import golden, native
-from radar_tpu.io.capture import decode_shorts, write_capture
+from mmradar import golden, native
+from mmradar.io.capture import decode_shorts, write_capture
 
 pytestmark = pytest.mark.skipif(
     shutil.which("g++") is None and shutil.which("make") is None,
@@ -130,7 +130,7 @@ def test_native_os_cfar_matches_golden(cfg):
 
 
 def test_native_os_alpha_matches_python():
-    from radar_tpu.golden import os_cfar_alpha
+    from mmradar.golden import os_cfar_alpha
 
     lib = native.load()
     for n, k, pfa in [(248, 186, 1e-4), (80, 60, 1e-3), (16, 12, 1e-2)]:
@@ -141,8 +141,8 @@ def test_native_os_alpha_matches_python():
 def test_os_cfar_half_integer_k_parity(cfg):
     """cfar_train=(4,7) -> n_train=222, 0.75*222=166.5 exactly: all three
     implementations must round k the same way (half away from zero)."""
-    from radar_tpu.config import RadarConfig as RC
-    from radar_tpu.ops.cfar import os_cfar_2d as os_xla
+    from mmradar.config import RadarConfig as RC
+    from mmradar.ops.cfar import os_cfar_2d as os_xla
     import jax.numpy as jnp
 
     c = RC(cfar_train=(4, 7))
@@ -173,7 +173,7 @@ def test_native_go_so_cfar_matches_golden(cfg):
 
 
 def test_native_go_so_alpha_matches_python():
-    from radar_tpu.golden import go_so_cfar_alpha
+    from mmradar.golden import go_so_cfar_alpha
 
     lib = native.load()
     for n, pfa in [(104, 1e-6), (40, 1e-4), (12, 1e-2)]:
@@ -184,7 +184,7 @@ def test_native_go_so_alpha_matches_python():
 
 
 def test_native_integrated_alpha_matches_golden():
-    from radar_tpu import golden, native
+    from mmradar import golden, native
 
     for n_p in (1, 2, 4, 8):
         t_c = native.ca_cfar_alpha_integrated(104, 1e-4, n_p)
@@ -200,8 +200,8 @@ def test_native_integrated_alpha_matches_golden():
 def test_native_ca_cfar_respects_n_pulses():
     import dataclasses
 
-    from radar_tpu import golden, native
-    from radar_tpu.config import RadarConfig
+    from mmradar import golden, native
+    from mmradar.config import RadarConfig
 
     rng = np.random.default_rng(0)
     p = rng.exponential(1.0, (32, 4, 64, 64)).sum(axis=1)  # Erlang-4 cells
@@ -221,7 +221,7 @@ def test_native_ca_cfar_respects_n_pulses():
 
 
 def test_native_go_so_integrated_alpha_matches_golden():
-    from radar_tpu.golden import go_so_cfar_alpha
+    from mmradar.golden import go_so_cfar_alpha
 
     lib = native.load()
     for n_p in (2, 4):
@@ -232,7 +232,7 @@ def test_native_go_so_integrated_alpha_matches_golden():
 
 
 def test_native_os_integrated_alpha_matches_golden():
-    from radar_tpu.golden import os_cfar_alpha
+    from mmradar.golden import os_cfar_alpha
 
     lib = native.load()
     for n_p in (2, 4):
@@ -248,7 +248,7 @@ def test_native_clutter_map_matches_golden():
     == float64 golden, bit-level: the same bisection + MGF-derivative
     series (Erlang n_pulses included), the same block-update recursion
     and pre-update decisions, both seeded and self-seeding forms."""
-    from radar_tpu import golden, native
+    from mmradar import golden, native
 
     for pfa, beta, block, n_p in [(1e-4, 0.25, 1, 1), (1e-3, 0.25, 16, 4),
                                   (1e-4, 0.1, 4, 2)]:

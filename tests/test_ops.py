@@ -4,14 +4,14 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from radar_tpu import golden
-from radar_tpu.config import RadarConfig
-from radar_tpu.io.capture import decode_shorts
-from radar_tpu.ops.aoa import angle_fft_spectrum, capon_spectrum, music_spectrum
-from radar_tpu.ops.cfar import ca_cfar_2d
-from radar_tpu.ops.decode import decode_to_cube, rx0_slice
-from radar_tpu.ops.preproc import clutter_subtract_pad
-from radar_tpu.ops.rangefft import range_doppler, range_fft
+from mmradar import golden
+from mmradar.config import RadarConfig
+from mmradar.io.capture import decode_shorts
+from mmradar.ops.aoa import angle_fft_spectrum, capon_spectrum, music_spectrum
+from mmradar.ops.cfar import ca_cfar_2d
+from mmradar.ops.decode import decode_to_cube, rx0_slice
+from mmradar.ops.preproc import clutter_subtract_pad
+from mmradar.ops.rangefft import range_doppler, range_fft
 
 
 def test_decode_matches_golden_exactly(cfg, capture):
@@ -128,7 +128,7 @@ def test_capon_matches_golden(cfg):
 
 
 def test_music_recovers_two_sources(cfg):
-    """MUSIC resolves two sources on the 4-element array; golden and TPU
+    """MUSIC resolves two sources on the 4-element array; golden and device
     implementations agree."""
     rng = np.random.default_rng(77)
     angles_true = [-25.0, 30.0]
@@ -175,7 +175,7 @@ def test_cfar_range_edges_do_not_wrap(cfg):
     """A strong target hugging range bin 0 must not inflate the noise
     estimate (and thus thresholds) at the far range edge: range is not
     circular.  'wrap' mode keeps the old circular behavior."""
-    from radar_tpu.config import RadarConfig as RC
+    from mmradar.config import RadarConfig as RC
 
     d, r = cfg.doppler_fft_size, cfg.range_fft_size
     rng = np.random.default_rng(31)
@@ -203,13 +203,7 @@ def test_cfar_range_edges_do_not_wrap(cfg):
     np.testing.assert_allclose(
         np.asarray(ca_cfar_2d(jnp.asarray(power), cfg)[1]), want_t, rtol=2e-3
     )
-    from radar_tpu.ops.pallas.cfar_kernel import ca_cfar_2d_pallas
-
-    np.testing.assert_allclose(
-        np.asarray(ca_cfar_2d_pallas(jnp.asarray(power), cfg, interpret=True)[1]),
-        want_t, rtol=2e-3,
-    )
-    from radar_tpu import native
+    from mmradar import native
 
     np.testing.assert_allclose(
         native.ca_cfar_2d(power.astype(np.float64), cfg)[1], want_t, rtol=1e-10
@@ -218,14 +212,14 @@ def test_cfar_range_edges_do_not_wrap(cfg):
 
 class TestOSCFAR:
     def test_alpha_monotone_and_sane(self):
-        from radar_tpu.golden import os_cfar_alpha
+        from mmradar.golden import os_cfar_alpha
 
         a1 = os_cfar_alpha(248, 186, 1e-4)
         a2 = os_cfar_alpha(248, 186, 1e-6)
         assert a2 > a1 > 1.0  # stricter pfa -> higher threshold scale
 
     def test_matches_golden(self, cfg):
-        from radar_tpu.ops.cfar import os_cfar_2d
+        from mmradar.ops.cfar import os_cfar_2d
 
         rng = np.random.default_rng(41)
         power = rng.exponential(
@@ -248,7 +242,7 @@ class TestOSCFAR:
         test_integrate.test_rx_matched_alpha_realizes_design_pfa)."""
         import dataclasses
 
-        from radar_tpu.ops.cfar import os_cfar_2d
+        from mmradar.ops.cfar import os_cfar_2d
 
         c1 = dataclasses.replace(cfg, cfar_n_pulses=1)
         rng = np.random.default_rng(43)
@@ -263,7 +257,7 @@ class TestOSCFAR:
         """The OS advantage: a second strong target inside the training
         ring biases CA's mean (masking the cell under test) but not the
         3/4-order statistic."""
-        from radar_tpu.ops.cfar import os_cfar_2d
+        from mmradar.ops.cfar import os_cfar_2d
 
         rng = np.random.default_rng(47)
         power = rng.exponential(
@@ -277,9 +271,9 @@ class TestOSCFAR:
         assert bool(np.asarray(os_hits)[60, 60])      # OS detects
 
     def test_pipeline_with_os_kind(self, cfg, targets):
-        from radar_tpu.config import RadarConfig as RC
-        from radar_tpu.models.rd_pipeline import RDPipeline
-        from radar_tpu.io.synthetic import synthesize_capture
+        from mmradar.config import RadarConfig as RC
+        from mmradar.models.rd_pipeline import RDPipeline
+        from mmradar.io.synthetic import synthesize_capture
 
         os_cfg = RC(cfar_kind="os")
         shorts = synthesize_capture(targets, 3, os_cfg, noise_std=2.0, seed=51)
@@ -292,9 +286,9 @@ class TestOSCFAR:
 def test_os_cfar_stride_parity_and_pfa(cfg):
     """Decimated OS-CFAR: all three twins agree at stride 4, and the
     recomputed alpha keeps the false-alarm rate bounded."""
-    from radar_tpu.config import RadarConfig as RC
-    from radar_tpu.ops.cfar import os_cfar_2d
-    from radar_tpu import native
+    from mmradar.config import RadarConfig as RC
+    from mmradar.ops.cfar import os_cfar_2d
+    from mmradar import native
 
     c = RC(cfar_os_stride=4)
     rng = np.random.default_rng(59)
@@ -326,7 +320,7 @@ def test_cfar_band_matrices_match_padded_boxsum():
     silently under-count."""
     import numpy as np
 
-    from radar_tpu.ops.cfar import band_reflect, band_wrap
+    from mmradar.ops.cfar import band_reflect_asym, band_wrap
 
     rng = np.random.default_rng(0)
     for n, w in [(8, 2), (8, 6), (8, 10), (5, 3), (16, 6), (1, 3)]:
@@ -343,20 +337,20 @@ def test_cfar_band_matrices_match_padded_boxsum():
             want = np.stack(
                 [xp_ref[i : i + 2 * w + 1].sum(axis=0) for i in range(n)]
             )
-            got = band_reflect(n, w) @ x
+            got = band_reflect_asym(n, -w, w) @ x
             np.testing.assert_allclose(
                 got, want, rtol=1e-6, err_msg=f"reflect {n},{w}"
             )
 
 
 def test_cfar_strip_form_exact_identity():
-    """The kernels' cancellation-free strip form is an exact algebraic
-    rewrite of total-minus-inner, and every strip matrix is non-negative
-    small ints exactly representable in bf16 (cfar_kernel.band_threshold
-    relies on both properties)."""
+    """The cancellation-free strip form of the GO/SO half-window sums is
+    an exact algebraic rewrite of total-minus-inner, with non-negative
+    small-integer strip matrices (the rewrite worth carrying into any
+    implementation of the band form, ROADMAP)."""
     import numpy as np
 
-    from radar_tpu.ops.cfar import cfar_band_matrices, go_so_band_matrices
+    from mmradar.ops.cfar import go_so_band_matrices
 
     rng = np.random.default_rng(7)
     for cfg_kw in [{}, {"cfar_range_mode": "wrap"},
@@ -365,41 +359,20 @@ def test_cfar_strip_form_exact_identity():
         d, r = 32, 32
         p = rng.exponential(1.0, (d, r))
         p[11, 7] = 1e9  # strong peak: the regime the rewrite protects
-        td, sr, gd, gr = (np.asarray(m, np.float64)
-                          for m in cfar_band_matrices(c, d, r))
-        classic = td @ p @ sr.T - gd @ p @ gr.T
-        strips = (td - gd) @ p @ sr.T + gd @ p @ (sr - gr).T
+        t2, g2, al, alg, bl, blg = (np.asarray(m, np.float64)
+                                    for m in go_so_band_matrices(c, d, r))
         # the residual IS the classic form's own f64 cancellation error
         # around the 1e9 peak (~1e-9 relative) — the thing the strip
         # form removes; away from exact zero they agree to f64 roundoff
-        np.testing.assert_allclose(strips, classic, rtol=1e-8)
-        mats = [td - gd, sr - gr]
-        t2, g2, al, alg, bl, blg = (np.asarray(m, np.float64)
-                                    for m in go_so_band_matrices(c, d, r))
         np.testing.assert_allclose(
             (t2 - g2) @ p @ al.T + g2 @ p @ (al - alg).T,
             t2 @ p @ al.T - g2 @ p @ alg.T, rtol=1e-8)
-        mats += [t2 - g2, al - alg, bl - blg]
-        for m in mats:
+        np.testing.assert_allclose(
+            (t2 - g2) @ p @ bl.T + g2 @ p @ (bl - blg).T,
+            t2 @ p @ bl.T - g2 @ p @ blg.T, rtol=1e-8)
+        for m in [t2 - g2, al - alg, bl - blg]:
             assert m.min() >= 0, "strip matrix went negative"
-            as_bf16 = jnp.asarray(m, jnp.bfloat16).astype(np.float64)
-            np.testing.assert_array_equal(np.asarray(as_bf16), m)
-
-
-def test_split3_exact():
-    """split3 reconstructs f32 bit-for-bit: h1 + h2 + h3 == p (the
-    exact-band threshold scheme is representation-error-free)."""
-    import numpy as np
-
-    from radar_tpu.ops.pallas.cfar_kernel import split3
-
-    rng = np.random.default_rng(3)
-    p = np.abs(rng.normal(size=(64, 64)).astype(np.float32))
-    p *= np.exp2(rng.integers(-20, 40, p.shape)).astype(np.float32)
-    h1, h2, h3 = split3(jnp.asarray(p))
-    rec = (h1.astype(jnp.float32) + h2.astype(jnp.float32)
-           + h3.astype(jnp.float32))
-    np.testing.assert_array_equal(np.asarray(rec), p)
+            np.testing.assert_array_equal(m, np.round(m))
 
 
 # ---------------------------------------------------------------------------
@@ -413,7 +386,7 @@ def test_go_so_alpha_identity():
     must reproduce the target pfa through the closed forms."""
     import math
 
-    from radar_tpu.golden import go_so_cfar_alpha
+    from mmradar.golden import go_so_cfar_alpha
 
     n, pfa = 40, 1e-4
     t_go = go_so_cfar_alpha(n, pfa, "go")
@@ -436,7 +409,7 @@ def test_go_so_alpha_identity():
 
 @pytest.mark.parametrize("kind", ["goca", "soca"])
 def test_go_so_cfar_matches_golden(cfg, kind):
-    from radar_tpu.ops.cfar import go_so_cfar_2d
+    from mmradar.ops.cfar import go_so_cfar_2d
 
     rng = np.random.default_rng(37)
     power = rng.exponential(
@@ -460,7 +433,7 @@ def test_go_so_noise_ordering(cfg):
     the same half sums), so with equal multipliers GO's threshold would
     dominate; with the solved per-kind multipliers both achieve the SAME
     pfa — checked empirically on pure exponential noise."""
-    from radar_tpu.ops.cfar import go_so_cfar_2d
+    from mmradar.ops.cfar import go_so_cfar_2d
 
     import dataclasses
 
@@ -484,7 +457,7 @@ def test_go_so_clutter_edge_behavior(cfg):
     the HOT half's sum as noise, so a cell just inside the cold region
     near the edge is NOT flagged (CA would average hot+cold and fire);
     detection of a strong target well inside the cold region survives."""
-    from radar_tpu.ops.cfar import go_so_cfar_2d
+    from mmradar.ops.cfar import go_so_cfar_2d
 
     rng = np.random.default_rng(43)
     d, r = cfg.doppler_fft_size, cfg.range_fft_size
@@ -504,14 +477,13 @@ def test_go_so_clutter_edge_behavior(cfg):
 
 
 def test_go_so_through_pipeline(cfg, capture):
-    """cfar_kind='goca'/'soca' runs end-to-end through RDPipeline (mega
-    power kernel + standalone GO/SO CFAR; the fused-CFAR detect variant
-    correctly stays CA-only)."""
-    from radar_tpu.models.rd_pipeline import RDPipeline
+    """cfar_kind='goca'/'soca' runs end-to-end through RDPipeline (fused
+    front-end + GO/SO band-matrix CFAR)."""
+    from mmradar.models.rd_pipeline import RDPipeline
 
     for kind in ("goca", "soca"):
         cfg2 = RadarConfig(cfar_kind=kind)
-        pipe = RDPipeline(cfg2, max_detections=8, rd_impl="mega-interpret")
+        pipe = RDPipeline(cfg2, max_detections=8, rd_impl="fused")
         base = pipe.prepare_base(jnp.asarray(capture[0]))
         out = pipe.detect(jnp.asarray(capture[1:3]), base)
         assert bool(np.asarray(out.num_hits).max() >= 1)
@@ -524,7 +496,7 @@ def test_go_so_through_pipeline(cfg, capture):
 def test_window_fn_kinds():
     """Coefficient sanity: hann == the legacy hann_window exactly; all
     kinds are non-negative-ish, peak near the middle, and rect is ones."""
-    from radar_tpu.golden import hann_window, window_fn
+    from mmradar.golden import hann_window, window_fn
 
     n = 100
     np.testing.assert_array_equal(window_fn(n, "hann"), hann_window(n))
@@ -543,7 +515,7 @@ def test_window_kind_sidelobe_ordering():
     (a tone at bin 0 through the dft_matrix path) shows the textbook
     sidelobe ordering — hann ~-31 dB first sidelobe, blackmanharris
     ~-92 dB."""
-    from radar_tpu.ops.dftmat import dft_matrix
+    from mmradar.ops.dftmat import dft_matrix
 
     def peak_sidelobe_db(kind, excl):
         # constant input == tone at frequency 0: the spectrum IS the
@@ -566,22 +538,20 @@ def test_window_kind_sidelobe_ordering():
 
 def test_window_kind_end_to_end_parity(targets):
     """A non-default window kind flows consistently through every path:
-    mega detect kernel (interpret) == maps twin == fused XLA, and the
-    RD planes match the golden model windowed with the same kind."""
+    fft == planar == fused, and the RD planes match the golden model
+    windowed with the same kind."""
     import dataclasses
 
-    from radar_tpu import golden as g
-    from radar_tpu.io.capture import decode_shorts
-    from radar_tpu.io.synthetic import synthesize_capture
-    from radar_tpu.models.rd_pipeline import RDPipeline
-    from radar_tpu.ops.fuseddft import fused_rd_planes
+    from mmradar import golden as g
+    from mmradar.io.capture import decode_shorts
+    from mmradar.io.synthetic import synthesize_capture
+    from mmradar.models.rd_pipeline import RDPipeline
+    from mmradar.ops.fuseddft import fused_rd_planes
 
     cfg2 = RadarConfig(window_kind="blackmanharris")
     shorts = synthesize_capture(targets, 3, cfg2, noise_std=2.0, seed=83)
-    det = RDPipeline(cfg2, max_detections=8, rd_impl="mega-interpret")
-    maps = RDPipeline(cfg2, max_detections=8,
-                      rd_impl="mega-maps-interpret",
-                      topk_impl="pallas-interpret")
+    det = RDPipeline(cfg2, max_detections=8, rd_impl="fft")
+    maps = RDPipeline(cfg2, max_detections=8, rd_impl="planar")
     fused = RDPipeline(cfg2, max_detections=8, rd_impl="fused")
     base = det.prepare_base(jnp.asarray(shorts[0]))
     a = det.detect(jnp.asarray(shorts[1:]), base)
@@ -603,66 +573,3 @@ def test_window_kind_end_to_end_parity(targets):
     got = np.asarray(dr[0]) + 1j * np.asarray(di[0])
     scale = np.abs(want).max()
     assert np.abs(got - want).max() / scale < 1e-3
-
-
-def test_packed_front_end_slot_pairing():
-    """The mega kernel's packed single-dot stages carry exactly their
-    term sets: the (2D, 6Kc) Doppler constant against the fixed RHS slot
-    order reproduces the 3-pass hi*hi + hi*lo + lo*hi for
-    dr = fr@xr - fi@xi / di = fr@xi + fi@xr, and the (3*2S, 2R) range
-    constant against the int16 raw's RN-split slots [raw_h, raw_l,
-    raw_h] reproduces raw @ a to the 3-pass error class (the int16
-    hi/lo split itself is exact: rh + rl == raw).  Guards the slot
-    order in _dop_lhs_consts/_dop_rhs/_range_consts."""
-    import numpy as np
-
-    from radar_tpu.ops.pallas.megakernel import (
-        _dop_lhs_consts,
-        _dop_rhs,
-        _range_consts,
-        _range_lhs,
-        _split,
-    )
-
-    rng = np.random.default_rng(7)
-    d, kc, n = 16, 8, 32
-    fr = jnp.asarray(rng.normal(size=(d, kc)), jnp.float32)
-    fi = jnp.asarray(rng.normal(size=(d, kc)), jnp.float32)
-    xr = jnp.asarray(rng.normal(size=(kc, n)), jnp.float32)
-    xi = jnp.asarray(rng.normal(size=(kc, n)), jnp.float32)
-
-    def dot3(a, b):
-        (ah, al), (bh, bl) = _split(a), _split(b)
-        mm = lambda x, y: jnp.dot(
-            x, y, preferred_element_type=jnp.float32)
-        return mm(ah, bh) + mm(ah, bl) + mm(al, bh)
-
-    l2 = _dop_lhs_consts(fr, fi, "high")
-    rhs = _dop_rhs(_split(xr), _split(xi), "high")
-    dd = jnp.dot(l2, rhs, preferred_element_type=jnp.float32)
-    np.testing.assert_allclose(
-        np.asarray(dd[:d]), np.asarray(dot3(fr, xr) - dot3(fi, xi)),
-        rtol=2e-5, atol=1e-5)
-    np.testing.assert_allclose(
-        np.asarray(dd[d:]), np.asarray(dot3(fr, xi) + dot3(fi, xr)),
-        rtol=2e-5, atol=1e-5)
-
-    s2, r = 24, 16
-    raw_i = rng.integers(-2000, 2000, size=(kc, s2)).astype(np.int16)
-    raw = jnp.asarray(raw_i)
-    art64 = rng.normal(size=(s2, r))
-    ait64 = rng.normal(size=(s2, r))
-    art = jnp.asarray(art64, jnp.float32)
-    ait = jnp.asarray(ait64, jnp.float32)
-    a2 = _range_consts(art, ait, "high")
-    z2 = jnp.dot(_range_lhs(raw, "high"), a2,
-                 preferred_element_type=jnp.float32)
-    # the RN hi/lo split of an int16 value is exact: rh + rl == raw
-    lhs3 = np.asarray(_range_lhs(raw, "high"), np.float64)
-    np.testing.assert_array_equal(
-        lhs3[:, :s2] + lhs3[:, s2:2 * s2], raw_i.astype(np.float64))
-    want_r = raw_i.astype(np.float64) @ art64
-    want_i = raw_i.astype(np.float64) @ ait64
-    scale = max(np.abs(want_r).max(), np.abs(want_i).max())
-    assert np.abs(np.asarray(z2[:, :r]) - want_r).max() / scale < 3e-5
-    assert np.abs(np.asarray(z2[:, r:]) - want_i).max() / scale < 3e-5

@@ -2,7 +2,7 @@
 
 This is the promoted version of the reference's disabled CPU<->CUDA
 verification loop (cudaBenchMarking.cpp:410-419): golden float64 trace vs
-TPU pipeline per frame — detection indices exact, magnitudes/distances
+device pipeline per frame — detection indices exact, magnitudes/distances
 within 1e-3 relative (BASELINE.json gates).
 """
 
@@ -11,12 +11,12 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from radar_tpu import golden
-from radar_tpu.config import RadarConfig
-from radar_tpu.io.capture import encode_frame
-from radar_tpu.io.synthetic import SceneTarget, synthesize_capture, synthesize_cube
-from radar_tpu.models.range_detector import RangeDetector
-from radar_tpu.models.rd_pipeline import RDPipeline
+from mmradar import golden
+from mmradar.config import RadarConfig
+from mmradar.io.capture import encode_frame
+from mmradar.io.synthetic import SceneTarget, synthesize_capture, synthesize_cube
+from mmradar.models.range_detector import RangeDetector
+from mmradar.models.rd_pipeline import RDPipeline
 
 
 class TestRangeDetector:
@@ -91,7 +91,7 @@ class TestRDPipeline:
 
     def test_rd_map_matches_golden(self, cfg, targets):
         cube = synthesize_cube(targets, 3, cfg, noise_std=1.0, seed=42)
-        from radar_tpu.io.capture import decode_shorts
+        from mmradar.io.capture import decode_shorts
 
         x64 = decode_shorts(encode_frame(cube[1], cfg), cfg) - cube[0]
         want = golden.range_doppler_map(x64, cfg)
@@ -119,10 +119,10 @@ class TestRDPipeline:
 
 
 class TestCfarImplSwitch:
-    def test_pallas_interpret_matches_xla(self, cfg, targets):
+    def test_auto_matches_xla(self, cfg, targets):
         shorts = synthesize_capture(targets, 3, cfg, noise_std=2.0, seed=9)
         a = RDPipeline(cfg, max_detections=8, cfar_impl="xla")
-        b = RDPipeline(cfg, max_detections=8, cfar_impl="pallas-interpret")
+        b = RDPipeline(cfg, max_detections=8, cfar_impl="auto")
         base_a = a.prepare_base(jnp.asarray(shorts[0]))
         out_a = a.detect(jnp.asarray(shorts[1:]), base_a)
         out_b = b.detect(jnp.asarray(shorts[1:]), base_a)
@@ -197,7 +197,7 @@ def test_pipeline_classes_frozen_and_value_hashed():
         pipe.cfar_impl = "xla"
     det = RangeDetector(cfg)
     with pytest.raises(dataclasses.FrozenInstanceError):
-        det.detect_impl = "pallas"
+        det.detect_impl = "xla"
 
     # equal config -> equal hash -> shared jit cache entry
     assert RDPipeline(cfg, max_detections=8) == pipe
@@ -244,16 +244,14 @@ def test_planar_pipeline_mean_clutter_and_golden(cfg, targets):
 
 
 @pytest.mark.parametrize("use_base", [True, False])
-@pytest.mark.parametrize("impl", ["fused", "fused-pallas"])
-def test_fused_pipeline_matches_mxu(cfg, targets, use_base, impl):
-    """The fused interleave-matmul paths (decode+window+DFT folded into
-    the MXU contractions — XLA einsums in ops/fuseddft.py, the explicit
-    kernel in ops/pallas/fused_dft_kernel.py) must agree with the
+def test_fused_pipeline_matches_mxu(cfg, targets, use_base):
+    """The fused interleave-matmul path (decode+window+DFT folded into
+    the matmul contractions, ops/fuseddft.py) must agree with the
     complex-cube mxu path: detections exactly, power to f32 roundoff."""
     shorts = synthesize_capture(targets, 4, cfg, noise_std=2.0, seed=33)
     mxu = RDPipeline(cfg, max_detections=8, rd_impl="mxu", cfar_impl="xla",
                      use_base_frame=use_base)
-    fused = RDPipeline(cfg, max_detections=8, rd_impl=impl,
+    fused = RDPipeline(cfg, max_detections=8, rd_impl="fused",
                        cfar_impl="xla", use_base_frame=use_base)
     base = mxu.prepare_base(jnp.asarray(shorts[0])) if use_base else None
     a = mxu.detect(jnp.asarray(shorts[1:]), base)
@@ -270,7 +268,7 @@ def test_fused_pipeline_mimo(targets):
     """Fused path with TDM-MIMO (num_tx=2): virtual array ordering and the
     chirp de-multiplex inside the Doppler contraction must match the
     explicit virtualize_cube path."""
-    from radar_tpu.config import RadarConfig as RC
+    from mmradar.config import RadarConfig as RC
 
     cfg2 = RC(num_tx=2)
     shorts = synthesize_capture(targets, 3, cfg2, noise_std=2.0, seed=34)
@@ -300,12 +298,13 @@ def test_detect_donated_matches_and_consumes(cfg, targets):
                                   np.asarray(want.range_bin))
     np.testing.assert_array_equal(np.asarray(got.valid), np.asarray(want.valid))
     # on the CPU backend XLA declines the donation (outputs are far smaller
-    # than the input, nothing to alias) and leaves the buffer live; on TPU
-    # the buffer is consumed.  Either way the call semantics must hold.
-    assert buf.is_deleted() or jax.default_backend() != "tpu"
+    # than the input, nothing to alias) and leaves the buffer live; on an
+    # accelerator the buffer may be consumed.  Either way the call
+    # semantics must hold.
+    assert buf.is_deleted() or jax.default_backend() == "cpu"
 
 
-@pytest.mark.parametrize("impl", ["fused", "fused-pallas", "planar"])
+@pytest.mark.parametrize("impl", ["fused", "fft", "mxu", "planar"])
 def test_unbatched_frame_all_impls(cfg, targets, impl):
     """A single unbatched (S,) frame must work on every rd_impl — the
     fused paths briefly hardcoded one batch dim."""
@@ -319,23 +318,21 @@ def test_unbatched_frame_all_impls(cfg, targets, impl):
     )
 
 
-def test_os_kind_pallas_impl_matches_xla(cfg):
-    """OS-CFAR's Pallas rank-selection kernel is a first-class impl: the
-    pipeline dispatch must produce the same hit map as the XLA sort path
-    (kernel-level bit-exactness is tested in test_pallas.py)."""
-    from radar_tpu.config import RadarConfig as RC
+def test_os_kind_hits_only_matches_threshold_path(cfg):
+    """OS-CFAR through the pipeline's CFAR dispatch: the hits-only path
+    (the counting form, what detection runs) gives the hit map of the
+    threshold path (the sort form), bit for bit."""
+    from mmradar.config import RadarConfig as RC
 
     rng = np.random.default_rng(9)
     power = jnp.asarray(
         rng.gamma(2.0, 100.0, (2, 128, 128)).astype(np.float32)
     )
-    a = RDPipeline(RC(cfar_kind="os"), max_detections=8, cfar_impl="xla")
-    b = RDPipeline(RC(cfar_kind="os"), max_detections=8,
-                   cfar_impl="pallas-interpret")
-    hits_a, thr_a = a._cfar(power)
-    hits_b, thr_b = b._cfar(power)
+    pipe = RDPipeline(RC(cfar_kind="os"), max_detections=8, cfar_impl="xla")
+    hits_a, thr_a = pipe._cfar(power)
+    hits_b, thr_b = pipe._cfar(power, hits_only=True)
+    assert thr_b is None and thr_a.shape == power.shape
     np.testing.assert_array_equal(np.asarray(hits_a), np.asarray(hits_b))
-    np.testing.assert_array_equal(np.asarray(thr_a), np.asarray(thr_b))
 
 
 def test_range_interpolation_beats_bin_quantization(cfg):
@@ -382,8 +379,8 @@ def test_velocity_interpolation_beats_bin_quantization(cfg):
 
 def test_range_interp_matches_golden_offset():
     """The jnp interpolation math is the twin of golden.parabolic_bin_offset."""
-    from radar_tpu.golden import parabolic_bin_offset
-    from radar_tpu.models.rd_pipeline import interp_cell_physics
+    from mmradar.golden import parabolic_bin_offset
+    from mmradar.models.rd_pipeline import interp_cell_physics
 
     cfg = RadarConfig()
     rng = np.random.default_rng(93)
@@ -402,7 +399,7 @@ def test_range_interp_matches_golden_offset():
 def test_range_interp_zero_offset_at_map_edges():
     """Edge range cells have no sub-bin information: a clamped neighbor
     must NOT produce the spurious ±0.5 offset the raw parabola gives."""
-    from radar_tpu.models.rd_pipeline import interp_cell_physics
+    from mmradar.models.rd_pipeline import interp_cell_physics
 
     cfg = RadarConfig()
     r_size = cfg.range_fft_size
@@ -423,11 +420,11 @@ def test_range_interp_zero_offset_at_map_edges():
 def test_onchip_time_harness(cfg, capture):
     """The shared on-chip timing harness (utils.timing.onchip_time) must
     execute its fori_loop program and return a non-negative per-iteration
-    time — every perf script (vmem_sweep, future A/Bs) leans on it."""
+    time — scripts/frontend_ab.py leans on it."""
     import jax.numpy as jnp
 
-    from radar_tpu.models.rd_pipeline import RDPipeline
-    from radar_tpu.utils.timing import onchip_time
+    from mmradar.models.rd_pipeline import RDPipeline
+    from mmradar.utils.timing import onchip_time
 
     pipe = RDPipeline(cfg, max_detections=8, rd_impl="fused")
     base = pipe.prepare_base(jnp.asarray(capture[0]))
@@ -447,9 +444,9 @@ def test_range_edge_guard_masks_wrapped_sidelobes():
 
     import jax.numpy as jnp
 
-    from radar_tpu.config import RadarConfig
-    from radar_tpu.io.synthetic import SceneTarget, synthesize_capture
-    from radar_tpu.models.rd_pipeline import RDPipeline
+    from mmradar.config import RadarConfig
+    from mmradar.io.synthetic import SceneTarget, synthesize_capture
+    from mmradar.models.rd_pipeline import RDPipeline
 
     cfg = RadarConfig()
     cap = synthesize_capture([SceneTarget(4.0, 1.5, 10.0)], 4, cfg,

@@ -3,7 +3,7 @@
 import numpy as np
 import pytest
 
-from radar_tpu.utils.points import (
+from mmradar.utils.points import (
     detections_to_xyz,
     write_point_cloud,
 )
@@ -34,8 +34,8 @@ def test_csv_and_ply(tmp_path):
 
 
 def test_cli_detect_points(tmp_path, cfg, capture):
-    from radar_tpu import cli
-    from radar_tpu.io.capture import write_capture
+    from mmradar import cli
+    from mmradar.io.capture import write_capture
 
     cap = tmp_path / "cap.bin"
     write_capture(str(cap), capture[:4])
@@ -61,7 +61,7 @@ def test_cli_detect_elevation_points(tmp_path, capsys):
     the records and in the point cloud's z (the full 3D product)."""
     import json
 
-    from radar_tpu import cli
+    from mmradar import cli
 
     cap = tmp_path / "elev.bin"
     rc = cli.main([
@@ -98,8 +98,8 @@ def test_cli_detect_elevation_points(tmp_path, capsys):
 
 
 def test_plot_point_cloud(tmp_path):
-    from radar_tpu.config import RadarConfig
-    from radar_tpu.viz import plot_point_cloud
+    from mmradar.config import RadarConfig
+    from mmradar.viz import plot_point_cloud
 
     rows = [(1, 1.0, 3.0, 0.0, -2.0, 1e8), (1, -2.0, 8.0, 0.0, 4.0, 2e8)]
     out = tmp_path / "cloud.png"

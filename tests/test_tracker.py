@@ -3,9 +3,9 @@
 import jax.numpy as jnp
 import numpy as np
 
-from radar_tpu.io.synthetic import SceneTarget, synthesize_capture
-from radar_tpu.models.rd_pipeline import RDPipeline
-from radar_tpu.models.tracker import (
+from mmradar.io.synthetic import SceneTarget, synthesize_capture
+from mmradar.models.rd_pipeline import RDPipeline
+from mmradar.models.tracker import (
     Tracker,
     TrackerConfig,
     detections_from_result,
@@ -98,7 +98,7 @@ class TestTrackerEndToEnd:
 
 class TestPeakGrouping:
     def test_sidelobes_collapse_to_strongest(self):
-        from radar_tpu.models.tracker import group_peaks
+        from mmradar.models.tracker import group_peaks
 
         dets = [
             _det(5.0, 2.0, 15.0, p=100.0),
@@ -112,13 +112,13 @@ class TestPeakGrouping:
         assert kept[0]["power"] == 100.0 and kept[1]["power"] == 80.0
 
     def test_distinct_targets_survive(self):
-        from radar_tpu.models.tracker import group_peaks
+        from mmradar.models.tracker import group_peaks
 
         dets = [_det(5.0, 2.0, 0.0, p=10.0), _det(5.0, -2.0, 0.0, p=9.0)]
         assert len(group_peaks(dets)) == 2  # same range, opposite velocity
 
     def test_materialize_result_is_numpy(self, cfg, targets):
-        from radar_tpu.models.tracker import materialize_result
+        from mmradar.models.tracker import materialize_result
 
         shorts = synthesize_capture(targets, 2, cfg, noise_std=2.0, seed=2)
         pipe = RDPipeline(cfg, max_detections=4)
@@ -132,7 +132,7 @@ class TestPeakGrouping:
 
 class TestEKFTracker:
     def _make(self, cfg):
-        from radar_tpu.models.tracker import EKFConfig, EKFTracker
+        from mmradar.models.tracker import EKFConfig, EKFTracker
 
         return EKFTracker(cfg, EKFConfig())
 
@@ -157,7 +157,7 @@ class TestEKFTracker:
         Cartesian model and its vector speed is recovered — the case the
         polar alpha-beta filter fragments."""
         import numpy as np
-        from radar_tpu.models.tracker import EKFTracker, EKFConfig
+        from mmradar.models.tracker import EKFTracker, EKFConfig
 
         tr = EKFTracker(cfg, EKFConfig())
         dt = cfg.num_chirps * cfg.chirp_interval_s
@@ -197,7 +197,7 @@ class TestEKFTracker:
         assert abs(old.range_m - 5.0) < 0.5
 
     def test_coast_and_delete(self, cfg):
-        from radar_tpu.models.tracker import EKFConfig, EKFTracker
+        from mmradar.models.tracker import EKFConfig, EKFTracker
 
         tr = EKFTracker(cfg, EKFConfig(max_misses=2))
         dt = cfg.num_chirps * cfg.chirp_interval_s
@@ -210,8 +210,8 @@ class TestEKFTracker:
 
     def test_track_capture_kind_ekf(self, cfg, capture):
         import jax.numpy as jnp
-        from radar_tpu.models.rd_pipeline import RDPipeline
-        from radar_tpu.models.tracker import track_capture
+        from mmradar.models.rd_pipeline import RDPipeline
+        from mmradar.models.tracker import track_capture
 
         pipe = RDPipeline(cfg, max_detections=8)
         base = pipe.prepare_base(jnp.asarray(capture[0]))
@@ -226,8 +226,8 @@ class TestEKFTracker:
         import jax.numpy as jnp
         import pytest
 
-        from radar_tpu.models.rd_pipeline import RDPipeline
-        from radar_tpu.models.tracker import (
+        from mmradar.models.rd_pipeline import RDPipeline
+        from mmradar.models.tracker import (
             EKFConfig, TrackerConfig, track_capture,
         )
 
@@ -247,7 +247,7 @@ def test_cli_confirm_hits_override(tmp_path):
     round-5 default of 3; bad values are usage errors."""
     import json
 
-    from radar_tpu import cli
+    from mmradar import cli
 
     path = tmp_path / "c.bin"
     assert cli.main(["generate", str(path), "--frames", "3",

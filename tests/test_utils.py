@@ -4,11 +4,13 @@ import io
 import json
 import time
 
+import jax
 import jax.numpy as jnp
 import numpy as np
+import pytest
 
-from radar_tpu.utils.records import DetectionRecord, JsonlWriter, last_frame_index
-from radar_tpu.utils.timing import StageTimings, Timer, fence, time_fn
+from mmradar.utils.records import DetectionRecord, JsonlWriter, last_frame_index
+from mmradar.utils.timing import StageTimings, Timer, fence, time_fn
 
 
 def test_timer_monotonic():
@@ -26,6 +28,19 @@ def test_stage_timings_report():
     assert st.per_frame_ms("fft") == 20.0
     rep = st.report()
     assert "Total FFT time" in rep and "FPS" in rep
+
+
+@pytest.mark.parametrize("dtype", ["complex64", "int32"])
+def test_fence_waits_on_complex_and_int_leaves(dtype):
+    """fence is jax.block_until_ready: complex and integer leaves are
+    fenced as they are (no reduction, no dtype restriction), alongside
+    host values."""
+    leaf = (jnp.arange(6) * (1 + 2j if dtype == "complex64" else 1)
+            ).astype(dtype).reshape(2, 3)
+    out = jax.jit(lambda x: x * 2)(leaf)
+    assert fence({"dev": out, "host": 3.0, "np": np.ones(2)}) is None
+    assert out.is_ready()
+    np.testing.assert_array_equal(np.asarray(out), 2 * np.asarray(leaf))
 
 
 def test_fence_handles_mixed_trees():

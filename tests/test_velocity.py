@@ -11,10 +11,10 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from radar_tpu import golden
-from radar_tpu.config import RadarConfig
-from radar_tpu.io.synthetic import SceneTarget, synthesize_capture
-from radar_tpu.models.rd_pipeline import RDPipeline
+from mmradar import golden
+from mmradar.config import RadarConfig
+from mmradar.io.synthetic import SceneTarget, synthesize_capture
+from mmradar.models.rd_pipeline import RDPipeline
 
 
 @pytest.fixture(scope="module")
@@ -80,7 +80,7 @@ class TestGolden:
 
 
 def test_jnp_twin_matches_golden(mcfg):
-    from radar_tpu.ops.aoa import disambiguate_velocity
+    from mmradar.ops.aoa import disambiguate_velocity
 
     rng = np.random.default_rng(3)
     snaps = (rng.normal(size=(2, 5, mcfg.num_virtual_rx))
@@ -143,8 +143,8 @@ class TestPipeline:
         """Track states carry the TRUE velocity past the TDM limit."""
         import json
 
-        from radar_tpu import cli
-        from radar_tpu.io.capture import write_capture
+        from mmradar import cli
+        from mmradar.io.capture import write_capture
 
         capture = synthesize_capture(
             [SceneTarget(range_m=5.0, velocity_mps=10.0, azimuth_deg=15.0,
@@ -179,8 +179,8 @@ class TestPipeline:
     def test_cli_disambiguate_flag(self, tmp_path, mcfg, fast_capture):
         import json
 
-        from radar_tpu import cli
-        from radar_tpu.io.capture import write_capture
+        from mmradar import cli
+        from mmradar.io.capture import write_capture
 
         cap = tmp_path / "fast.bin"
         write_capture(str(cap), fast_capture)

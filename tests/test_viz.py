@@ -6,11 +6,11 @@ import pytest
 
 matplotlib = pytest.importorskip("matplotlib")
 
-from radar_tpu import viz  # noqa: E402
-from radar_tpu.io.synthetic import SceneTarget, synthesize_capture  # noqa: E402
-from radar_tpu.models.range_detector import RangeDetector  # noqa: E402
-from radar_tpu.models.rd_pipeline import RDPipeline, integrate_power  # noqa: E402
-from radar_tpu.models.tracker import detections_from_result, track_capture  # noqa: E402
+from mmradar import viz  # noqa: E402
+from mmradar.io.synthetic import SceneTarget, synthesize_capture  # noqa: E402
+from mmradar.models.range_detector import RangeDetector  # noqa: E402
+from mmradar.models.rd_pipeline import RDPipeline, integrate_power  # noqa: E402
+from mmradar.models.tracker import detections_from_result, track_capture  # noqa: E402
 
 
 @pytest.fixture(scope="module")
